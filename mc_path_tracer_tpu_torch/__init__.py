@@ -1,0 +1,41 @@
+"""mc_path_tracer_tpu_torch — the PyTorch/CUDA port of mc_path_tracer_tpu.
+
+The JAX package beside it is the reference: every module here mirrors the
+module of the same name there and is held against it by the tests in
+`tests/test_torch_*.py`.  Plain tensor code is PyTorch; the BVH traversal
+(closest hit and any hit) is a hand-written CUDA kernel for Hopper
+(`csrc/traversal.cu`), built with nvcc at first use.  On CPU tensors every
+kernel wrapper runs its plain PyTorch version instead.
+
+Layout:
+  ops/       numerics: math conventions, threefry streams, samplers, BRDFs,
+             environment CDFs, intersection, BVH build, tone mapping.
+  ops/kernels/  the nvcc build and the kernel wrappers with their plain
+             versions and launch counters.
+  csrc/      CUDA sources.
+  models/    camera, film, materials, lights, mesh primitives, scene,
+             integrator.
+
+This package imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "PerspectiveCamera": ("mc_path_tracer_tpu_torch.models.camera", "PerspectiveCamera"),
+    "Film": ("mc_path_tracer_tpu_torch.models.film", "Film"),
+    "Scene": ("mc_path_tracer_tpu_torch.models.scene", "Scene"),
+    "RenderConfig": ("mc_path_tracer_tpu_torch.models.integrator", "RenderConfig"),
+    "render": ("mc_path_tracer_tpu_torch.models.integrator", "render"),
+}
+
+__all__ = [*_LAZY, "__version__"]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

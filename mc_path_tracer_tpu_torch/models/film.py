@@ -1,0 +1,64 @@
+"""Film: accumulated radiance and per-pixel sample counts, and the traversal
+tile order (port of mc_path_tracer_tpu/models/film.py)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mc_path_tracer_tpu.utils.image import write_png
+from mc_path_tracer_tpu_torch.ops import tonemap
+
+
+class Film(NamedTuple):
+    ld: torch.Tensor       # [H, W, 3] accumulated radiance
+    samples: torch.Tensor  # [H, W] per-pixel sample counts
+
+    @property
+    def height(self) -> int:
+        return self.ld.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.ld.shape[1]
+
+    def to_display(self, exposure: float = 1.0) -> torch.Tensor:
+        return tonemap.reinhard(self.ld, self.samples, exposure)
+
+    def to_uint8(self, exposure: float = 1.0) -> np.ndarray:
+        return tonemap.quantize(self.to_display(exposure)).cpu().numpy()
+
+    def save_png(self, path: str, exposure: float = 1.0) -> None:
+        write_png(path, self.to_uint8(exposure))
+
+    def radiance_mean(self) -> torch.Tensor:
+        """Linear HDR image (Ld / samples)."""
+        return self.ld / torch.clamp(self.samples, min=1.0)[..., None]
+
+
+# traversal-block tile shape: 32x16 = 512 pixels, so consecutive rays of a
+# block cover a spatially tight frustum
+TRAV_TILE_W = 32
+TRAV_TILE_H = 16
+
+
+def tile_order(width: int, height: int, tw: int = TRAV_TILE_W,
+               th: int = TRAV_TILE_H):
+    """Pixel enumeration in tile-major order (host numpy): (px, py) int32
+    arrays of length width*height whose consecutive runs of tw*th pixels
+    form one 2-D tile; edge tiles are clipped."""
+    ty, tx = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
+    xs, ys = [], []
+    for y0 in range(0, height, th):
+        for x0 in range(0, width, tw):
+            x = x0 + tx
+            y = y0 + ty
+            keep = (x < width) & (y < height)
+            xs.append(x[keep].ravel())
+            ys.append(y[keep].ravel())
+    return (
+        np.concatenate(xs).astype(np.int32),
+        np.concatenate(ys).astype(np.int32),
+    )

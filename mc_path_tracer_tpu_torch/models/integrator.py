@@ -1,0 +1,308 @@
+"""Wavefront path-tracing integrator (port of
+mc_path_tracer_tpu/models/integrator.py, forward pass).
+
+Each bounce is straight-line masked tensor code over the block's rays; dead
+lanes are predicated off with `where`.  Per bounce the integrator makes one
+closest-hit dispatch (the extension ray) and one fused any-hit dispatch of
+2R rays (the light sample's shadow ray and the BRDF sample's visibility
+ray).  On CUDA tensors with accel="auto" both go to the hand-written
+traversal kernel; on CPU tensors, and always with accel="brute", to its
+plain brute-force version.  Everything between the dispatches is plain
+PyTorch.
+
+Estimator (the reference's wavefront kernels, as in the JAX package):
+environment radiance on primary miss; next-event estimation at hits
+1..max_depth-1 combining a light sample and a BRDF sample with the power
+heuristic (delta lights take the light sample at full weight); 50/50
+specular/diffuse continuation; Russian roulette from bounce `rr_start`
+with q = max(0.05, 1 - beta.y) and survivors divided by 1 - q.
+`reference_quirks=True` reproduces the reference's bugs (env added once
+per light, no selection compensation, no RR reweight, halved delta
+lights).  All randomness is threefry keyed by pixel id (ops/rng.py), so a
+render matches the JAX package's pixel by pixel.
+
+Sampled directions, pdfs, MIS weights and intersections are detached
+(`stop_gradient` in the JAX package); gradients are not ported yet.
+
+Not ported yet (ROADMAP Queue 1), and refused with NotImplementedError:
+reuse_brdf_ray=True, emissive triangles (scene build), textures (scene
+build), and accel values other than "auto" and "brute".  `sort_rays` is
+accepted but not applied: sorting only permutes kernel lanes and never
+changes the result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from mc_path_tracer_tpu_torch.models import camera as camera_mod
+from mc_path_tracer_tpu_torch.models import lights as lights_mod
+from mc_path_tracer_tpu_torch.models.film import Film, tile_order
+from mc_path_tracer_tpu_torch.models.scene import SceneData
+from mc_path_tracer_tpu_torch.ops import brdf, rng
+from mc_path_tracer_tpu_torch.ops.intersect import Hit, finish_closest, pack_rays
+from mc_path_tracer_tpu_torch.ops.kernels import traversal
+from mc_path_tracer_tpu_torch.ops.sampling import power_heuristic
+
+# reference constants (wavefront_kernels.cu)
+SHADOW_OFFSET = 0.01
+VIS_OFFSET = 0.001
+EXT_OFFSET = 0.001
+RR_START = 3
+RR_MIN_Q = 0.05
+DEFAULT_SPP = 250
+DEFAULT_MAX_DEPTH = 5
+PIXEL_CHUNK = 65536
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Integrator configuration: the JAX package's fields."""
+
+    spp: int = DEFAULT_SPP
+    max_depth: int = DEFAULT_MAX_DEPTH
+    accel: str = "auto"            # "auto" (kernel on CUDA) | "brute" (plain)
+    # JAX parity only, no effect: the JAX traversal unrolls this many leaf
+    # slots, while the port's traversal reads each leaf's own triangle count
+    # (the tree's leaf size is Scene.max_leaf)
+    max_leaf: int = 4
+    jitter: bool = False           # the reference shoots pixel centers only
+    reference_quirks: bool = False
+    rr_start: int = RR_START
+    # no effect yet: sorting only permutes kernel lanes (ROADMAP Queue 1)
+    sort_rays: bool = True
+    reuse_brdf_ray: bool = False   # not ported yet
+    mis_mode: str = "mis"          # "mis" | "light" | "brdf"
+    env_importance: bool = True
+
+
+def _check_supported(cfg: RenderConfig) -> None:
+    if cfg.mis_mode not in ("mis", "light", "brdf"):
+        raise ValueError(f"unknown mis_mode {cfg.mis_mode!r} "
+                         "(expected 'mis', 'light' or 'brdf')")
+    if cfg.accel not in ("auto", "brute"):
+        raise NotImplementedError(
+            f"accel={cfg.accel!r} is not ported yet (ROADMAP Queue 2); "
+            "use 'auto' or 'brute'")
+    if cfg.reuse_brdf_ray and not cfg.reference_quirks:
+        raise NotImplementedError(
+            "reuse_brdf_ray=True is not ported yet: ROADMAP Queue 1, reuse_brdf_ray")
+
+
+def _detach(h: Hit) -> Hit:
+    return Hit(*(x.detach() for x in h))
+
+
+def _intersect(scene: SceneData, cfg: RenderConfig, ro, rd, mask=None) -> Hit:
+    rays = pack_rays(ro, rd, mask)
+    if cfg.accel == "brute":
+        _, tri_id = traversal.closest_plain(rays, scene.tris.geo)
+    else:
+        _, tri_id = traversal.trace_closest(rays, scene.bvh.packed, scene.tris.geo)
+    return finish_closest(scene.tris, tri_id, ro, rd)
+
+
+def _occluded(scene: SceneData, cfg: RenderConfig, ro, rd, mask=None, t_max=None):
+    rays = pack_rays(ro, rd, mask, t_max)
+    if cfg.accel == "brute":
+        return traversal.anyhit_plain(rays, scene.tris.geo)
+    return traversal.trace_anyhit(rays, scene.bvh.packed, scene.tris.geo)
+
+
+def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
+                   cfg: RenderConfig, pid=None) -> torch.Tensor:
+    """Path-trace one sample for each input ray; returns radiance [R, 3].
+    `pid` keys each lane's random stream (pixel ids from the renderer);
+    it defaults to the array position."""
+    _check_supported(cfg)
+    num_rays = ray_o.shape[0]
+    if pid is None:
+        pid = torch.arange(num_rays, dtype=torch.int32, device=ray_o.device)
+    quirks = cfg.reference_quirks
+    lights = lights_mod.with_packed(scene.lights)
+    n_lights = lights_mod.num_lights(lights)
+
+    l_out = torch.zeros((num_rays, 3), dtype=torch.float32, device=ray_o.device)
+    beta = torch.ones((num_rays, 3), dtype=torch.float32, device=ray_o.device)
+
+    isect = _detach(_intersect(scene, cfg, ray_o, ray_d))
+
+    # background on primary miss; quirk mode adds it once per light
+    env_id = torch.zeros(num_rays, dtype=torch.int64, device=ray_o.device)
+    bg = lights_mod.radiance(lights, env_id, ray_d)
+    bg_scale = float(n_lights) if quirks else 1.0
+    l_out = l_out + torch.where(isect.hit[..., None], 0.0, bg * bg_scale)
+
+    alive = isect.hit
+    wo = -ray_d
+
+    # next-event estimation at hits 1..max_depth-1
+    for bounce in range(1, cfg.max_depth):
+        u = rng.pixel_uniforms(rng.fold_in(key, bounce), pid, 10).detach()
+        pos = isect.position
+        mat = scene.materials.gather(isect.material_id)
+        n = scene.materials.perturb_normal(isect.material_id, isect.normal)
+
+        # ---- light selection and the light-sample estimator ----
+        l_id = torch.clamp((u[:, 0] * n_lights).to(torch.int64), max=n_lights - 1)
+        wl = lights_mod.sample_dir(lights, l_id, u[:, 1:3],
+                                   env_importance=cfg.env_importance).detach()
+        delta = lights_mod.is_delta(lights, l_id)
+        li_light = lights_mod.radiance(lights, l_id, wl)
+        pdf_light = lights_mod.pdf(lights, l_id, wl,
+                                   env_importance=cfg.env_importance).detach()
+        shadow_o = pos + n * SHADOW_OFFSET
+        f_light = brdf.mixture_f(mat, n, wl, wo)
+        pdf_brdf_at_wl = torch.where(
+            delta, 1.0, brdf.mixture_pdf(mat, n, wl, wo)).detach()
+        # lanes whose light sample contributes nothing skip the shadow ray
+        sh_mask = alive if quirks else (
+            alive & (pdf_light > 0.0) & (f_light.detach() != 0.0).any(dim=-1)
+        )
+
+        # ---- brdf-sample estimator, non-delta lights ----
+        wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 3], u[:, 4:6]).detach()
+        f_at_wb = brdf.mixture_f(mat, n, wb, wo)
+        pdf_at_wb = brdf.mixture_pdf(mat, n, wb, wo).detach()
+
+        # one fused any-hit dispatch for the shadow and visibility rays
+        vis_o = pos + wb * VIS_OFFSET
+        occ2 = _occluded(
+            scene, cfg,
+            torch.cat([shadow_o, vis_o], dim=0),
+            torch.cat([wl, wb], dim=0),
+            mask=torch.cat([sh_mask, alive & ~delta], dim=0),
+        )
+        visible = ~occ2[:num_rays] & alive
+        vis2 = ~occ2[num_rays:] & ~delta & alive
+        li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
+        pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
+                                         env_importance=cfg.env_importance)
+        f_brdf = torch.where(vis2[..., None], f_at_wb, 0.0)
+        li_brdf = torch.where(vis2[..., None], li_brdf_raw, 0.0)
+        pdf_brdf = torch.where(vis2, pdf_at_wb, 1.0).detach()
+        pdf_light_at_wb = torch.where(vis2, pdf_l_at_wb_raw, 1.0).detach()
+
+        # ---- MIS combine ----
+        w1 = power_heuristic(1, pdf_light, 1, pdf_brdf_at_wl).detach()
+        if not quirks:
+            w1 = torch.where(delta, 1.0, w1)
+        w2 = power_heuristic(1, pdf_brdf, 1, pdf_light_at_wb).detach()
+        if cfg.mis_mode == "light":
+            w1, w2 = torch.ones_like(w1), torch.zeros_like(w2)
+        elif cfg.mis_mode == "brdf":
+            w1, w2 = torch.zeros_like(w1), torch.ones_like(w2)
+        ld = torch.where(
+            (visible & (pdf_light > 0.0) & (w1 > 0.0))[..., None],
+            f_light * li_light * (w1 / torch.clamp(pdf_light, min=1e-20))[..., None],
+            0.0,
+        )
+        ld = ld + torch.where(
+            (vis2 & (pdf_brdf > 0.0) & (w2 > 0.0))[..., None],
+            f_brdf * li_brdf * (w2 / torch.clamp(pdf_brdf, min=1e-20))[..., None],
+            0.0,
+        )
+        if not quirks:
+            ld = ld * float(n_lights)  # uniform-selection compensation
+        l_out = l_out + torch.where(alive[..., None], beta * ld, 0.0)
+
+        # ---- path continuation sample ----
+        ws = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
+        pdf_s = brdf.mixture_pdf(mat, n, ws, wo).detach()
+        f_s = brdf.mixture_f(mat, n, ws, wo)
+        cont_ok = (pdf_s > 0.0) & (f_s.detach() != 0.0).any(dim=-1)
+        beta = torch.where(
+            alive[..., None],
+            beta * f_s / torch.clamp(pdf_s, min=1e-20)[..., None],
+            beta,
+        )
+        alive = alive & cont_ok
+
+        # ---- Russian roulette ----
+        if bounce >= cfg.rr_start:
+            q = torch.clamp(1.0 - beta[:, 1].detach(), min=RR_MIN_Q)
+            alive = alive & ~(u[:, 9] < q)
+            if not quirks:
+                beta = beta / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
+
+        # ---- extension, only if another NEE bounce follows ----
+        if bounce < cfg.max_depth - 1:
+            ray_d = ws
+            wo = -ray_d
+            isect = _detach(
+                _intersect(scene, cfg, pos + n * EXT_OFFSET, ray_d, mask=alive))
+            alive = alive & isect.hit
+
+    return l_out
+
+
+def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx):
+    """One sample for pixels (px, py); all randomness keyed by pixel id."""
+    skey = rng.fold_in(key, sample_idx)
+    pid = (py * width + px).to(torch.int32)
+    if cfg.jitter:
+        uj = rng.pixel_uniforms(rng.fold_in(skey, 1_000_003), pid, 2)
+        pxj = px + uj[..., 0] - 0.5
+        pyj = py + uj[..., 1] - 0.5
+    else:
+        pxj, pyj = px, py
+    lens_u = rng.pixel_uniforms(rng.fold_in(skey, 1_000_007), pid, 2)
+    ro, rd = camera_mod.gen_camera_rays(camera, width, height, pxj, pyj, lens_u)
+    return trace_radiance(scene, ro, rd, skey, cfg, pid=pid)
+
+
+def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
+                         width: int, height: int, px: torch.Tensor,
+                         py: torch.Tensor, key: torch.Tensor, cfg: RenderConfig,
+                         spp: int | None = None) -> torch.Tensor:
+    """Radiance summed over `spp` samples for pixels (px, py) [R] (f32
+    pixel coordinates), [R, 3].  The pixels run in PIXEL_CHUNK-ray blocks,
+    each through every sample before the next block starts, so live state
+    stays bounded by the block."""
+    spp = cfg.spp if spp is None else spp
+    blocks = []
+    for s0 in range(0, px.shape[0], PIXEL_CHUNK):
+        px_c, py_c = px[s0 : s0 + PIXEL_CHUNK], py[s0 : s0 + PIXEL_CHUNK]
+        acc = torch.zeros((px_c.shape[0], 3), dtype=torch.float32, device=px.device)
+        for s in range(spp):
+            acc = acc + _sample_pass(scene, cfg, camera, width, height,
+                                     px_c, py_c, key, s)
+        blocks.append(acc)
+    return torch.cat(blocks, dim=0)
+
+
+def camera_params(camera, width: int, height: int, device=None):
+    """A host PerspectiveCamera (aspect set from the film size) or
+    ready-made CameraParams."""
+    if isinstance(camera, camera_mod.CameraParams):
+        return camera
+    return dataclasses.replace(camera, aspect=width / height).params(device)
+
+
+def render(scene, camera, width: int, height: int,
+           cfg: RenderConfig = RenderConfig(), key: torch.Tensor | None = None,
+           device=None) -> Film:
+    """Render a full frame.  `scene` is a Scene (built on `device`) or a
+    SceneData (rendered on its own device).  Pixels are traced in 32x16
+    tile-major order and scattered back to image layout."""
+    _check_supported(cfg)
+    if isinstance(scene, SceneData):
+        scene_data = scene
+        device = scene_data.tris.v0.device
+    else:
+        scene_data = scene.build(device)
+    if key is None:
+        key = rng.prng_key(0)
+    cam = camera_params(camera, width, height, device)
+    pxi, pyi = tile_order(width, height)
+    px = torch.from_numpy(pxi.astype(np.float32)).to(device)
+    py = torch.from_numpy(pyi.astype(np.float32)).to(device)
+    acc = render_tile_radiance(scene_data, cam, width, height, px, py, key, cfg)
+    img = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+    img[torch.from_numpy(pyi).long().to(device), torch.from_numpy(pxi).long().to(device)] = acc
+    return Film(ld=img, samples=torch.full((height, width), float(cfg.spp),
+                                           dtype=torch.float32, device=device))

@@ -1,0 +1,191 @@
+"""Ray-triangle intersection contract and hit shading (port of
+mc_path_tracer_tpu/ops/intersect.py).
+
+  - Moller-Trumbore with backface culling: det < K_EPSILON or t < 0 is a
+    miss (Triangle.cu TEST_CULL path).
+  - Barycentric attributes u*a1 + v*a2 + (1-u-v)*a0.
+  - The BVH is threaded (skip-link) and depth-first: node i hit -> i+1,
+    miss or leaf done -> skip; leaves own contiguous triangle ranges of the
+    leaf-order triangle arrays.
+
+Traversal itself lives in ops/kernels/traversal.py: the CUDA kernel and
+its plain (brute-force) version share the packed contract below.
+  rays  [R, 8] f32: o.xyz, d.xyz, live (> 0.5), t_max
+  nodes [N, 8] f32: bmin, bmax, bitcast(first*16 + count), bitcast(skip)
+  geo   [T, 9] f32: v0, e1, e2 in leaf order
+Every intersection is outside autograd: geometry is not differentiated.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mc_path_tracer_tpu_torch.ops.math import (
+    K_EPSILON,
+    K_HUGE,
+    build_onb,
+    cross,
+    dot,
+    normalize,
+)
+
+
+class TriangleSoA(NamedTuple):
+    """Flat world-space triangle arrays."""
+
+    v0: torch.Tensor          # [T, 3]
+    e1: torch.Tensor          # [T, 3] v1 - v0
+    e2: torch.Tensor          # [T, 3] v2 - v0
+    n0: torch.Tensor          # [T, 3] shading normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor         # [T, 2]
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    material_id: torch.Tensor  # [T] int32
+    face_normal: torch.Tensor  # [T, 3]
+    # packed shading rows [T, 16] (n0 n1 n2 uv0 uv1 uv2 mat) or [T, 28]
+    # with xyzw tangents (tan0 tan1 tan2); built by the BVH reorder
+    attrs: torch.Tensor | None = None
+    tan0: torch.Tensor | None = None  # [T, 4] xyz tangent + w handedness
+    tan1: torch.Tensor | None = None
+    tan2: torch.Tensor | None = None
+    # traversal geometry [T, 9] (v0 e1 e2), built by the BVH reorder
+    geo: torch.Tensor | None = None
+
+    @property
+    def num_triangles(self) -> int:
+        return self.v0.shape[0]
+
+
+class BVHArrays(NamedTuple):
+    """Threaded (skip-link) BVH in depth-first order; `packed` is the
+    [N, 8] node table the traversal reads (see module docstring)."""
+
+    bmin: torch.Tensor   # [N, 3] f32
+    bmax: torch.Tensor   # [N, 3] f32
+    first: torch.Tensor  # [N] int32
+    count: torch.Tensor  # [N] int32 (0 for inner nodes)
+    skip: torch.Tensor   # [N] int32
+    packed: torch.Tensor  # [N, 8] f32
+
+    @property
+    def num_nodes(self) -> int:
+        return self.bmin.shape[0]
+
+
+class Hit(NamedTuple):
+    """Intersection record (reference Isect)."""
+
+    hit: torch.Tensor          # [R] bool
+    t: torch.Tensor            # [R]
+    tri_id: torch.Tensor       # [R] int32 (-1 on miss)
+    position: torch.Tensor     # [R, 3]
+    normal: torch.Tensor       # [R, 3] interpolated shading normal
+    uv: torch.Tensor           # [R, 2]
+    material_id: torch.Tensor  # [R] int64
+    tangent: torch.Tensor      # [R, 3]
+    bitangent: torch.Tensor    # [R, 3]
+
+
+def moller_trumbore(ray_o, ray_d, v0, e1, e2):
+    """Batched Moller-Trumbore with backface culling; inputs broadcast.
+    Returns (valid, t, u, v).  The operation order is the JAX package's and
+    the CUDA kernel's."""
+    pvec = cross(ray_d, e2)
+    det = dot(e1, pvec)
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-30, det, 1.0)
+    tvec = ray_o - v0
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot(ray_d, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
+    valid = (
+        (det >= K_EPSILON)
+        & (u >= 0.0)
+        & (u <= 1.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t >= 0.0)
+    )
+    return valid, t, u, v
+
+
+def winner_uvt(tris: TriangleSoA, tri_id, ray_o, ray_d):
+    """Exact Moller-Trumbore on each ray's known winning triangle: one row
+    gather + MT.  Miss lanes (tri_id < 0) read triangle 0; the caller
+    sanitizes them."""
+    idx = torch.clamp(tri_id, min=0).long()
+    _, t, u, v = moller_trumbore(ray_o, ray_d, tris.v0[idx], tris.e1[idx], tris.e2[idx])
+    return u, v, t
+
+
+def _tangent_frame(n, tan4):
+    """Orthonormal shading frame from an interpolated xyzw tangent:
+    Gram-Schmidt against n, bitangent = (n x t) * w."""
+    t_raw = tan4[..., 0:3]
+    t_ortho = t_raw - n * dot(n, t_raw)[..., None]
+    bad = dot(t_ortho, t_ortho)[..., None] < 1e-12
+    t_fb, _ = build_onb(n)
+    t_vec = normalize(torch.where(bad, t_fb, t_ortho))
+    b_vec = cross(n, t_vec) * tan4[..., 3:4]
+    return t_vec, b_vec
+
+
+def _shade_attrs(tris: TriangleSoA, tri_id, u, v, ray_o, ray_d, t, hit) -> Hit:
+    """Interpolate hit attributes from the packed `attrs` rows with the
+    barycentric convention u*a1 + v*a2 + (1-u-v)*a0."""
+    tid = torch.clamp(tri_id, min=0).long()
+    w = (1.0 - u - v)[..., None]
+    uu, vv = u[..., None], v[..., None]
+    a = tris.attrs[tid]                    # one wide row gather
+    n = normalize(uu * a[..., 3:6] + vv * a[..., 6:9] + w * a[..., 0:3])
+    uv = uu * a[..., 11:13] + vv * a[..., 13:15] + w * a[..., 9:11]
+    mat = torch.where(hit, a[..., 15].to(torch.int64), 0)
+    if a.shape[-1] >= 28:
+        tan4 = uu * a[..., 20:24] + vv * a[..., 24:28] + w * a[..., 16:20]
+        t_vec, b_vec = _tangent_frame(n, tan4)
+    else:
+        t_vec, b_vec = build_onb(n)
+    pos = ray_o + t[..., None] * ray_d
+    return Hit(
+        hit=hit,
+        t=t,
+        tri_id=torch.where(hit, tri_id, -1),
+        position=pos,
+        normal=n,
+        uv=uv,
+        material_id=mat,
+        tangent=t_vec,
+        bitangent=b_vec,
+    )
+
+
+def pack_rays(ray_o, ray_d, mask=None, t_max=None) -> torch.Tensor:
+    """Rays as the traversal's [R, 8] rows: o.xyz, d.xyz, live, t_max
+    (live = 1 and t_max = 1e32 where not given)."""
+    r = ray_o.shape[0]
+    live = (
+        torch.ones(r, dtype=torch.float32, device=ray_o.device)
+        if mask is None else mask.to(torch.float32)
+    )
+    tm = (
+        torch.full((r,), K_HUGE, dtype=torch.float32, device=ray_o.device)
+        if t_max is None else t_max.to(torch.float32)
+    )
+    return torch.cat([ray_o, ray_d, live[:, None], tm[:, None]], dim=1).to(torch.float32)
+
+
+def finish_closest(tris: TriangleSoA, tri_id, ray_o, ray_d) -> Hit:
+    """Hit record from a traversal's winning tri_id: recompute the winner's
+    exact (u, v, t), sanitize misses to u = v = 0 and t = K_HUGE (dead-lane
+    origins near 1e32 would otherwise give NaN normals that reach the next
+    bounce's origins), then shade."""
+    hit = tri_id >= 0
+    u, v, t_exact = winner_uvt(tris, tri_id, ray_o, ray_d)
+    u = torch.where(hit, u, 0.0)
+    v = torch.where(hit, v, 0.0)
+    t = torch.where(hit, t_exact, K_HUGE)
+    return _shade_attrs(tris, tri_id, u, v, ray_o, ray_d, t, hit)

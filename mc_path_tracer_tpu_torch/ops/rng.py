@@ -1,0 +1,89 @@
+"""Counter-based random streams: threefry2x32 in torch integer ops, bit for
+bit the streams of mc_path_tracer_tpu/ops/rng.py under JAX's default
+configuration (threefry2x32 with `jax_threefry_partitionable` on).
+
+torch has no usable uint32 arithmetic, so 32-bit words live in int64 and
+every add and shift is masked with `& 0xFFFFFFFF`; right shifts of these
+non-negative values are logical.  The same code runs on Python ints (scalar
+key derivation on the host, no device round trip) and on int64 tensors of
+any device (per-lane streams), so a render on the card draws the same
+numbers as the JAX reference.
+
+A key is a [2] int64 tensor holding two uint32 words (JAX's raw key);
+`prng_key(s)` is `[0, s]`, like `jax.random.PRNGKey(s)`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & MASK
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counters (x1, x2) under key
+    (k1, k2): JAX's `_threefry2x32_lowering`, on ints or int64 tensors."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x1, x2
+
+
+def prng_key(seed: int) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)` for a 32-bit seed: the words [0, seed]."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64)
+
+
+def _words(key: torch.Tensor) -> tuple[int, int]:
+    k1, k2 = key.tolist()
+    return int(k1), int(k2)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in`: hash the counter pair (0, data) under key.
+
+    `data` is an int (returns a [2] key) or an integer tensor (returns one
+    key per element, [*data.shape, 2], on data's device)."""
+    k1, k2 = _words(key)
+    if isinstance(data, torch.Tensor):
+        y1, y2 = threefry2x32(k1, k2, 0, data.to(torch.int64) & MASK)
+        return torch.stack([y1, y2], dim=-1)
+    y1, y2 = threefry2x32(k1, k2, 0, int(data) & MASK)
+    return torch.tensor([y1, y2], dtype=torch.int64)
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> f32 in [0, 1): 23 mantissa bits under exponent 0,
+    minus 1 (`jax.random.uniform`'s float construction)."""
+    mant = (bits >> 9) | 0x3F800000   # < 2**31, exact in int32
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """`jax.random.uniform(key, (n,))` in f32."""
+    k1, k2 = _words(key)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return _bits_to_unit(b1 ^ b2)
+
+
+def pixel_uniforms(key: torch.Tensor, pid: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-pixel uniform streams: `n` variates per lane keyed by the lane's
+    pixel id, so a pixel's noise does not depend on how the frame is cut
+    into blocks.  Shape [*pid.shape, n], on pid's device."""
+    keys = fold_in(key, pid)
+    lo = torch.arange(n, dtype=torch.int64, device=pid.device)
+    b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(lo), lo)
+    return _bits_to_unit(b1 ^ b2)

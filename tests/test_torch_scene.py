@@ -1,0 +1,95 @@
+"""The port's Scene.build() against the JAX Scene.build() on the same calls:
+the leaf-order triangles and packed shading rows, the BVH node table, the
+material table, the environment CDFs and the directional lights must be
+equal, not close (both run the same host numpy and native builder).
+scene_data_from_arrays must reproduce the JAX arrays it is given."""
+
+import numpy as np
+import pytest
+import torch
+
+from mc_path_tracer_tpu.models import primitives as jprim
+from mc_path_tracer_tpu.models.primitives import plane, uv_sphere
+from mc_path_tracer_tpu.models.scene import Scene as JScene
+from mc_path_tracer_tpu_torch.models import primitives as tprim
+from mc_path_tracer_tpu_torch.models.scene import (
+    Scene as TScene,
+    scene_arrays,
+    scene_data_from_arrays,
+)
+
+
+def small_scene(scene_cls, roughness=0.3):
+    """A floor quad and a 192-triangle UV sphere (194 triangles), a 16x32
+    HDR environment and one directional light."""
+    env = (np.random.default_rng(0).uniform(0.1, 2.0, size=(16, 32, 3)) ** 2
+           ).astype(np.float32)
+    s = scene_cls()
+    s.set_environment_hdr(env, ls=1.0)
+    s.add_directional_light((0.4, 1.0, 0.2), color=(1.0, 0.95, 0.8), ls=3.0)
+    floor = s.add_material(albedo=(0.7, 0.7, 0.7), roughness=0.9)
+    p, n, uv, idx = plane(10.0)
+    s.add_mesh(p, idx, normals=n, uvs=uv, material_id=floor)
+    ball = s.add_material(albedo=(0.8, 0.3, 0.2), roughness=roughness, metallic=0.5)
+    p, n, uv, idx = uv_sphere(0.8, center=(0, 0.8, 0), rings=8, segments=12)
+    s.add_mesh(p, idx, normals=n, uvs=uv, material_id=ball)
+    return s
+
+
+@pytest.fixture(scope="module")
+def built():
+    return small_scene(JScene).build(), small_scene(TScene).build()
+
+
+@pytest.mark.parametrize("name, kwargs", [
+    ("uv_sphere", dict(radius=0.7, center=(1.8, 0.7, -1.8), rings=32, segments=50)),
+    ("uv_sphere", dict(radius=0.8, center=(0, 0.8, 0), rings=8, segments=12)),
+    ("plane", dict(size=40.0)),
+    ("plane", dict(size=2.0, center=(0, 3, 1), normal_axis="z")),
+])
+def test_primitives_equal_jax(name, kwargs):
+    """The port's primitives give the JAX package's arrays exactly."""
+    for a, b in zip(getattr(tprim, name)(**kwargs), getattr(jprim, name)(**kwargs)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def _compare(port_arrays: dict, jax_arrays: dict, prefixes):
+    keys = [k for k in jax_arrays if k.startswith(prefixes)]
+    assert keys
+    for k in keys:
+        assert k in port_arrays, k
+        np.testing.assert_array_equal(port_arrays[k], jax_arrays[k], err_msg=k)
+
+
+def test_scene_build_equals_jax(built):
+    jsd, tsd = built
+    assert tsd.tris.num_triangles == jsd.tris.num_triangles == 194
+    assert tsd.tris.attrs.shape == (194, 28)
+    ja, ta = scene_arrays(jsd), scene_arrays(tsd)
+    _compare(ta, ja, ("tris.", "bvh.", "materials.", "lights.env.", "lights.directional."))
+    np.testing.assert_array_equal(
+        ta["tris.geo"], np.concatenate([ja["tris.v0"], ja["tris.e1"], ja["tris.e2"]], 1))
+
+
+def test_scene_data_from_arrays_reproduces_jax(built):
+    jsd, _ = built
+    ja = scene_arrays(jsd)
+    sd = scene_data_from_arrays(ja)
+    _compare(scene_arrays(sd), ja,
+             ("tris.", "bvh.", "materials.", "lights.env.", "lights.directional."))
+    assert sd.tris.geo.is_contiguous() and sd.tris.geo.dtype == torch.float32
+
+
+def test_unported_scene_features_are_refused(built):
+    s = small_scene(TScene)
+    s.add_material(emissive=(5.0, 5.0, 5.0))
+    s.build()  # an unused emissive material is fine
+    p, n, uv, idx = plane(1.0, center=(0, 3, 0))
+    s.add_mesh(p, idx, normals=n, uvs=uv, material_id=len(s.material_albedo) - 1)
+    with pytest.raises(NotImplementedError, match="area lights"):
+        s.build()
+    ja = scene_arrays(built[0])
+    ja["materials.albedo_tex"] = np.zeros_like(ja["materials.albedo_tex"])
+    with pytest.raises(NotImplementedError, match="textures"):
+        scene_data_from_arrays(ja)
