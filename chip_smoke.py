@@ -1,24 +1,47 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds the traversal
-kernel from csrc/, checks it against its plain PyTorch version on the card,
-renders the bench scene at 1920x1080, 4 spp, depth 5 through the kernel,
-and checks the kernel route against the plain route on a crop.
+"""Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--png PATH]
+
+Builds the three CUDA sources of csrc/ (one nvcc each, in parallel), then
+drives the port's two main paths and holds every kernel against its plain
+PyTorch version on the card:
+
+  [scene] [kernel]  the bench scene (48,002 triangles); the traversal
+                    kernel against its plain version on mixed rays and at
+                    the bench frame's dispatch shapes, with a counting pass
+                    of the nodes and triangles those rays need
+  [render]          bench path: 1920x1080, 4 spp, depth 5, through the
+                    traversal kernel
+  [parity]          kernel route against plain route on a 64x64 crop
+  [tonemap]         the tone-map kernel against plain on the bench film
+  [dense]           config2 (2,320 triangles, emissive quad): the dense
+                    kernel against plain on 65,536 camera rays and 65,536
+                    bounded shadow rays toward the quad
+  [area]            area-light path: config2 at 256x256, 64 spp, depth 3,
+                    rendered with accel="auto" (traversal) and "dense",
+                    each frame then saved as a PNG through the tone-map
+                    kernel; the two images agree; the 4-triangle area
+                    scene under "auto" takes the dense kernel
+  [stream]          the traversal kernel on 1,003,520 triangles (the TPU
+                    streaming kernel's contract) against plain
+  [imports]         no module of JAX or of the JAX package was loaded
 
 Needs a CUDA GPU and nvcc; fails (non-zero exit, no result line) without
 them and on any fault.  Prints one line per phase, then a JSON line of the
-kernels (launches on the main path, error against the plain version, times
-at the main path's shapes), the card's name and power limit, and last
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+kernels (launches on the main paths, error against the plain version,
+times at the main paths' shapes beside the least time the card could take),
+the card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -29,8 +52,28 @@ CHECK_RAYS = 16384
 CLOSEST_RAYS = 65536      # one block's closest-hit dispatch
 ANYHIT_RAYS = 131072      # one block's fused shadow + visibility dispatch
 CROP = 64
-SOURCE = "mc_path_tracer_tpu_torch/csrc/traversal.cu"
-REPLACES = "mc_path_tracer_tpu/ops/pallas/traversal_kernel.py:892"
+AREA_SIZE, AREA_SPP, AREA_DEPTH = 256, 64, 3     # config2 as configured
+STREAM_RAYS = 2048
+KERNELS = {   # name: (source, TPU kernel it replaces)
+    "closest": ("mc_path_tracer_tpu_torch/csrc/traversal.cu",
+                "mc_path_tracer_tpu/ops/pallas/traversal_kernel.py:892"),
+    "anyhit": ("mc_path_tracer_tpu_torch/csrc/traversal.cu",
+               "mc_path_tracer_tpu/ops/pallas/traversal_kernel.py:892"),
+    "dense_closest": ("mc_path_tracer_tpu_torch/csrc/dense.cu",
+                      "mc_path_tracer_tpu/ops/pallas/intersect_kernel.py:69"),
+    "dense_anyhit": ("mc_path_tracer_tpu_torch/csrc/dense.cu",
+                     "mc_path_tracer_tpu/ops/pallas/intersect_kernel.py:115"),
+    "tonemap": ("mc_path_tracer_tpu_torch/csrc/tonemap.cu",
+                "mc_path_tracer_tpu/ops/pallas/tonemap_kernel.py:22"),
+}
+# least-time model: published H100 SXM peaks (fp32 outside the tensor
+# cores, HBM3), and the fp32 operations (add, sub, mul, div, min, max;
+# compares not counted) of one box test and one Moller-Trumbore test as
+# csrc/traversal.cu and csrc/mt.cuh write them
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+SLAB_FLOPS = 22
+MT_FLOPS = 46
 
 
 def log(msg: str) -> None:
@@ -43,6 +86,13 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the fp32 rate, in ms."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def build_bench_scene():
@@ -98,33 +148,43 @@ def phase_device() -> str:
 def phase_build():
     from mc_path_tracer_tpu_torch.ops.kernels import build
 
-    _, info = build.load("traversal")
-    log(f"[build] {info.path.name}: {info.seconds:.2f} s nvcc")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    built = build.load_all(["traversal", "dense", "tonemap"])
+    log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    for _, info in built.values():
+        log(f"[build] {info.path.name}: {info.seconds:.2f} s nvcc")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
-def phase_scene(device):
-    scene = build_bench_scene()
+def build_scene(label: str, scene, device, n_tris: int):
+    """scene.build(device), timed; fails unless the native builder ran and
+    the triangle count is the expected one."""
     t0 = time.perf_counter()
     sd = scene.build(device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     t = sd.tris.num_triangles
-    if t != 48002:
-        raise AssertionError(f"bench scene has {t} triangles, expected 48002")
-    log(f"[scene] {t} triangles, {sd.bvh.num_nodes} nodes, "
-        f"{scene.builder} BVH builder, built in {seconds:.2f} s")
+    log(f"[scene] {label}: {t} triangles, {sd.bvh.num_nodes} nodes, {scene.builder} "
+        f"BVH builder, {sd.lights.area.count} emissive triangles, built in {seconds:.2f} s")
+    if t != n_tris:
+        raise AssertionError(f"{label} has {t} triangles, expected {n_tris}")
+    if scene.builder != "native":
+        raise AssertionError(f"{label}: the native BVH builder did not run ({scene.builder})")
     return sd
 
 
-def _camera_rays(px, py, device):
+def phase_scene(device):
+    return build_scene("bench scene", build_bench_scene(), device, 48002)
+
+
+def _camera_rays(camera, width, height, px, py, device):
     from mc_path_tracer_tpu_torch.models import camera as camera_mod
 
-    cam = dataclasses.replace(bench_camera(), aspect=WIDTH / HEIGHT).params(device)
+    cam = dataclasses.replace(camera, aspect=width / height).params(device)
     lens_u = torch.zeros((px.shape[0], 2), device=device)
-    return camera_mod.gen_camera_rays(cam, WIDTH, HEIGHT, px, py, lens_u)
+    return camera_mod.gen_camera_rays(cam, width, height, px, py, lens_u)
 
 
 def _bounce_rays(sd, ro, rd, gen, device):
@@ -193,19 +253,66 @@ def _check_anyhit(label, rays, occ_k, occ_p):
     return (occ_k[live].float() - occ_p[live].float()).abs().max().item()
 
 
+def walk_counts(rays, nodes, geo, any_hit: bool) -> tuple[int, int]:
+    """(nodes visited, triangles tested) summed over the live rays: the
+    skip-link walk of csrc/traversal.cu replayed with torch in the kernel's
+    order and arithmetic (boxes pruned against the best t, leaves tested in
+    index order, any-hit stopping at its first hit within t_max)."""
+    from mc_path_tracer_tpu_torch.ops.intersect import moller_trumbore
+    from mc_path_tracer_tpu_torch.ops.math import K_HUGE
+
+    n = nodes.shape[0]
+    meta = nodes[:, 6].contiguous().view(torch.int32).long()
+    skip = nodes[:, 7].contiguous().view(torch.int32).long()
+    first, count = meta >> 4, meta & 15
+    live = rays[:, 6] > 0.5
+    o, d, t_max = rays[live, 0:3], rays[live, 3:6], rays[live, 7]
+    g = torch.where(d.abs() > 1e-12, d, torch.where(d >= 0, 1e-12, -1e-12))
+    inv = 1.0 / g
+    idx = torch.zeros(o.shape[0], dtype=torch.long, device=rays.device)
+    t_best = torch.full((o.shape[0],), K_HUGE, device=rays.device)
+    visits = tests = 0
+    while idx.numel():
+        visits += idx.numel()
+        box = nodes[idx]
+        t0 = (box[:, 0:3] - o) * inv
+        t1 = (box[:, 3:6] - o) * inv
+        tnear = torch.minimum(t0, t1).amax(dim=1)
+        tfar = torch.maximum(t0, t1).amin(dim=1)
+        hit_box = (tnear <= tfar) & (tfar >= 0.0) & (tnear <= t_best)
+        c = torch.where(hit_box, count[idx], 0)
+        done = torch.zeros_like(hit_box)
+        for k in range(int(c.max().item())):
+            m = (k < c) & ~done
+            tests += int(m.sum().item())
+            row = geo[torch.where(m, first[idx] + k, 0)]
+            valid, t, _, _ = moller_trumbore(o, d, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+            if any_hit:
+                done = done | (m & valid & (t <= t_max))
+            else:
+                t_best = torch.where(m & valid & (t < t_best), t, t_best)
+        nxt = torch.where(hit_box & (count[idx] == 0), idx + 1, skip[idx])
+        keep = (nxt < n) & ~done
+        idx, o, d, inv, t_max, t_best = (x[keep] for x in (nxt, o, d, inv, t_max, t_best))
+    return visits, tests
+
+
 def phase_kernel_check(sd, device, name_limit):
-    """The kernel against its plain version on the same rays: a mixed set
-    with masked lanes and bounded t_max, then the main path's shapes."""
+    """The traversal kernel against its plain version on the same rays: a
+    mixed set with masked lanes and bounded t_max, then the bench frame's
+    dispatch shapes, timed, with the counting pass for the bound."""
     from mc_path_tracer_tpu_torch.models.film import tile_order
     from mc_path_tracer_tpu_torch.ops import intersect
     from mc_path_tracer_tpu_torch.ops.kernels import traversal
 
     gen = torch.Generator(device=device).manual_seed(0)
     nodes, geo = sd.bvh.packed, sd.tris.geo
+    cam = bench_camera()
 
     # 16,384 camera rays at random pixels + 16,384 bounce rays from their hits
     pix = torch.randint(0, WIDTH * HEIGHT, (CHECK_RAYS,), generator=gen, device=device)
-    ro_c, rd_c = _camera_rays((pix % WIDTH).float(), (pix // WIDTH).float(), device)
+    ro_c, rd_c = _camera_rays(cam, WIDTH, HEIGHT, (pix % WIDTH).float(),
+                              (pix // WIDTH).float(), device)
     ro_b, rd_b, h = _bounce_rays(sd, ro_c, rd_c, gen, device)
     ro = torch.cat([ro_c, ro_b])
     rd = torch.cat([rd_c, rd_b])
@@ -231,7 +338,7 @@ def phase_kernel_check(sd, device, name_limit):
     blk = slice(15 * CLOSEST_RAYS, 16 * CLOSEST_RAYS)
     px = torch.from_numpy(pxi[blk].astype(np.float32)).to(device)
     py = torch.from_numpy(pyi[blk].astype(np.float32)).to(device)
-    ro_c, rd_c = _camera_rays(px, py, device)
+    ro_c, rd_c = _camera_rays(cam, WIDTH, HEIGHT, px, py, device)
     ro_b, rd_b, h = _bounce_rays(sd, ro_c, rd_c, gen, device)
     closest_rays = intersect.pack_rays(ro_b, rd_b, h.hit)
     light = torch.tensor([0.4, 1.0, 0.2], device=device)
@@ -240,37 +347,51 @@ def phase_kernel_check(sd, device, name_limit):
     anyhit_rays = intersect.pack_rays(
         torch.cat([shadow_o, ro_b]), torch.cat([light, rd_b]),
         torch.cat([h.hit, h.hit]))
-    times = {}
-    k_ms, k_out = _time_ms(lambda: traversal.trace_closest(closest_rays, nodes, geo), 20)
-    p_ms, p_out = _time_ms(lambda: traversal.closest_plain(closest_rays, geo), 2)
-    label = f"{CLOSEST_RAYS} path rays"
-    errs["closest"].append(_check_closest(label, closest_rays, k_out, p_out))
-    times["closest"] = (k_ms, p_ms)
-    k_ms, k_out = _time_ms(lambda: traversal.trace_anyhit(anyhit_rays, nodes, geo), 20)
-    p_ms, p_out = _time_ms(lambda: traversal.anyhit_plain(anyhit_rays, geo), 2)
-    label = f"{ANYHIT_RAYS} path rays"
-    errs["anyhit"].append(_check_anyhit(label, anyhit_rays, k_out, p_out))
-    times["anyhit"] = (k_ms, p_ms)
-    for name, rays_n in (("closest", CLOSEST_RAYS), ("anyhit", ANYHIT_RAYS)):
-        k_ms, p_ms = times[name]
-        log(f"[kernel] {name} {rays_n} rays: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-            f"({name_limit})")
-    return {name: max(e) for name, e in errs.items()}, times
+    out = {}
+    for name, rays, fn, plain, check, out_bytes in (
+        ("closest", closest_rays, traversal.trace_closest, traversal.closest_plain,
+         _check_closest, 8),
+        ("anyhit", anyhit_rays, traversal.trace_anyhit, traversal.anyhit_plain,
+         _check_anyhit, 1),
+    ):
+        k_ms, k_out = _time_ms(lambda: fn(rays, nodes, geo), 20)
+        p_ms, p_out = _time_ms(lambda: plain(rays, geo), 2)
+        errs[name].append(check(f"{rays.shape[0]} path rays", rays, k_out, p_out))
+        visits, tests = walk_counts(rays, nodes, geo, any_hit=name == "anyhit")
+        nbytes = (rays.numel() + nodes.numel() + geo.numel()) * 4 + rays.shape[0] * out_bytes
+        b_ms, b_by = bound(nbytes, visits * SLAB_FLOPS + tests * MT_FLOPS)
+        log(f"[kernel] {name} {rays.shape[0]} rays: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}: {visits} node visits, {tests} triangle tests, "
+            f"{nbytes} bytes) ({name_limit})")
+        out[name] = dict(max_abs_err=max(errs[name]), ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def _reset():
+    from mc_path_tracer_tpu_torch.ops.kernels import reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+
+
+def _launches():
+    from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    return dict(LAUNCHES)
 
 
 def phase_render(sd, device, name_limit):
+    """The bench path; returns its launch counts and film."""
     from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, render
-    from mc_path_tracer_tpu_torch.ops.kernels import traversal
 
     cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
-    for k in traversal.LAUNCHES:
-        traversal.LAUNCHES[k] = 0
-    torch.cuda.synchronize()
+    _reset()
     t0 = time.perf_counter()
     film = render(sd, bench_camera(), WIDTH, HEIGHT, cfg, device=device)
-    torch.cuda.synchronize()
+    launches = _launches()
     frame_s = time.perf_counter() - t0
-    launches = dict(traversal.LAUNCHES)
     img = film.radiance_mean()
     finite = bool(torch.isfinite(img).all())
     mean = img.mean().item()
@@ -282,8 +403,8 @@ def phase_render(sd, device, name_limit):
     if not finite or mean <= 0.0 or spread <= 0.0:
         raise AssertionError("rendered image is not finite, dark or uniform")
     if launches["closest"] == 0 or launches["anyhit"] == 0 or launches["plain"] != 0:
-        raise AssertionError(f"main path did not run through the kernel: {launches}")
-    return launches, frame_s
+        raise AssertionError(f"bench path did not run through the kernel: {launches}")
+    return launches, film
 
 
 def phase_route_parity(sd, device):
@@ -313,22 +434,267 @@ def phase_route_parity(sd, device):
         raise AssertionError("kernel route and plain route disagree")
 
 
+def phase_tonemap(film, name_limit):
+    """The tone-map kernel against its plain version on the bench frame's
+    film: bit equality required."""
+    from mc_path_tracer_tpu_torch.ops.kernels import tonemap
+
+    ld, samples = film.ld.contiguous(), film.samples.contiguous()
+    k_ms, k_out = _time_ms(lambda: tonemap.tonemap(ld, samples, 1.0), 50)
+    p_ms, p_out = _time_ms(lambda: tonemap.tonemap_plain(ld, samples, 1.0), 10)
+    diff = (k_out.int() - p_out.int()).abs().max().item()
+    equal = bool(torch.equal(k_out, p_out))
+    h, w = samples.shape
+    nbytes = h * w * (12 + 4 + 3)
+    b_ms, b_by = bound(nbytes, h * w * 22)
+    log(f"[tonemap] {w}x{h} film: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes), bit-equal {equal} ({name_limit})")
+    if not equal:
+        raise AssertionError(f"tone-map kernel differs from plain (max {diff})")
+    return dict(max_abs_err=float(diff), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def config2_scene(device):
+    from mc_path_tracer_tpu_torch import configs
+
+    scene, cam, cfg, size = configs.config2_mis_area_light()
+    if size != (AREA_SIZE, AREA_SIZE) or (cfg.spp, cfg.max_depth) != (AREA_SPP, AREA_DEPTH):
+        raise AssertionError(f"config2 changed: {size} {cfg}")
+    return build_scene("config2", scene, device, 2320), cam, cfg
+
+
+def _first_occluder(rays, geo):
+    """Index of the first triangle within t_max per ray, -1 if none: the
+    triangle tests an index-order any-hit needs."""
+    from mc_path_tracer_tpu_torch.ops.intersect import moller_trumbore
+    from mc_path_tracer_tpu_torch.ops.kernels.traversal import PLAIN_PAIRS
+
+    first = torch.full((rays.shape[0],), -1, dtype=torch.long, device=rays.device)
+    step = max(1, PLAIN_PAIRS // geo.shape[0])
+    for s in range(0, rays.shape[0], step):
+        c = rays[s : s + step]
+        valid, t, _, _ = moller_trumbore(c[:, None, 0:3], c[:, None, 3:6],
+                                         geo[None, :, 0:3], geo[None, :, 3:6],
+                                         geo[None, :, 6:9])
+        occ = valid & (t <= c[:, 7:8])
+        first[s : s + step] = torch.where(occ.any(-1), occ.int().argmax(-1), -1)
+    return first
+
+
+def phase_dense(sd, cam, device, name_limit):
+    """The dense kernel against its plain version at config2's path shapes:
+    the 65,536 camera rays of the frame and 65,536 bounded shadow rays from
+    their hits toward points sampled on the quad (t_max short of the point,
+    as the integrator sets it); the traversal kernel timed on the same rays
+    for the crossover DENSE_ACCEL_MAX_TRIS assumes."""
+    from mc_path_tracer_tpu_torch.models import lights as lights_mod
+    from mc_path_tracer_tpu_torch.models.film import tile_order
+    from mc_path_tracer_tpu_torch.models.integrator import SHADOW_OFFSET
+    from mc_path_tracer_tpu_torch.ops import intersect
+    from mc_path_tracer_tpu_torch.ops.kernels import dense, traversal
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    geo, nodes = sd.tris.geo, sd.bvh.packed
+    pxi, pyi = tile_order(AREA_SIZE, AREA_SIZE)
+    px = torch.from_numpy(pxi.astype(np.float32)).to(device)
+    py = torch.from_numpy(pyi.astype(np.float32)).to(device)
+    ro, rd = _camera_rays(cam, AREA_SIZE, AREA_SIZE, px, py, device)
+    camera_rays = intersect.pack_rays(ro, rd)
+    _, tri_id = traversal.closest_plain(camera_rays, geo)
+    h = intersect.finish_closest(sd.tris, tri_id, ro, rd)
+    u3 = torch.rand((ro.shape[0], 3), generator=gen, device=device)
+    wl, dist, _, _ = lights_mod.sample_area(sd.lights.area, sd.tris, h.position, u3)
+    shadow_rays = intersect.pack_rays(
+        h.position + h.normal * SHADOW_OFFSET, wl, h.hit,
+        dist * (1.0 - 1e-3) - 2.0 * SHADOW_OFFSET)
+    n_tris = geo.shape[0]
+    out = {}
+    for name, rays, fn, plain, check, trav in (
+        ("dense_closest", camera_rays, dense.dense_closest, traversal.closest_plain,
+         _check_closest, lambda r: traversal.trace_closest(r, nodes, geo)),
+        ("dense_anyhit", shadow_rays, dense.dense_anyhit, traversal.anyhit_plain,
+         _check_anyhit, lambda r: traversal.trace_anyhit(r, nodes, geo)),
+    ):
+        k_ms, k_out = _time_ms(lambda: fn(rays, geo), 20)
+        p_ms, p_out = _time_ms(lambda: plain(rays, geo), 2)
+        t_ms, t_out = _time_ms(lambda: trav(rays), 20)
+        label = f"{rays.shape[0]} config2 rays"
+        err = check(label + " (dense)", rays, k_out, p_out)
+        check(label + " (traversal)", rays, t_out, p_out)
+        live = rays[:, 6] > 0.5
+        if name == "dense_closest":
+            tests = int(live.sum().item()) * n_tris
+            nbytes = (rays.numel() + geo.numel()) * 4 + rays.shape[0] * 8
+        else:
+            first = _first_occluder(rays, geo)[live]
+            tests = int(torch.where(first >= 0, first + 1, n_tris).sum().item())
+            nbytes = (rays.numel() + geo.numel()) * 4 + rays.shape[0]
+        b_ms, b_by = bound(nbytes, tests * MT_FLOPS)
+        log(f"[dense] {name} {rays.shape[0]} rays x {n_tris} triangles: kernel {k_ms:.4f} ms, "
+            f"traversal kernel {t_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}: {tests} triangle tests x {MT_FLOPS} flops) ({name_limit})")
+        out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, traversal_ms=t_ms)
+    return out
+
+
+def phase_area(sd, cam, cfg, device, png: Path, name_limit):
+    """The area-light path: config2 rendered with accel="auto" (2,320
+    triangles > DENSE_ACCEL_MAX_TRIS: the traversal kernel) and "dense",
+    each saved as a PNG through the tone-map kernel, launches counted around
+    render + save; the two images must agree."""
+    from mc_path_tracer_tpu_torch.models.integrator import render
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    per_sample = {"closest": 4 * AREA_SPP, "anyhit": 2 * AREA_SPP}
+    images, launches = {}, {}
+    for accel, (c_name, a_name) in (("auto", ("closest", "anyhit")),
+                                    ("dense", ("dense_closest", "dense_anyhit"))):
+        run_cfg = dataclasses.replace(cfg, accel=accel)
+        _reset()
+        t0 = time.perf_counter()
+        film = render(sd, cam, AREA_SIZE, AREA_SIZE, run_cfg, key=rng.prng_key(0))
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        path = png.with_name(f"{png.stem}_{accel}{png.suffix}")
+        film.save_png(str(path))
+        got = _launches()
+        images[accel] = film.radiance_mean()
+        img = images[accel]
+        log(f"[area] config2 {AREA_SIZE}x{AREA_SIZE} {AREA_SPP} spp depth {AREA_DEPTH} "
+            f"accel={accel}: frame {frame_s:.3f} s ({name_limit}); launches {got}; "
+            f"image mean {img.mean().item():.5f}; wrote {path}")
+        want = {c_name: per_sample["closest"], a_name: per_sample["anyhit"], "tonemap": 1}
+        wrong = {k: got[k] for k in got if got[k] != want.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"accel={accel}: launches {got}, expected {want}")
+        if not bool(torch.isfinite(img).all()) or img.mean().item() <= 0.0:
+            raise AssertionError(f"config2 accel={accel} is not finite or dark")
+        launches[accel] = got
+    a, b = images["auto"], images["dense"]
+    diff = (a - b).abs()
+    agree = (diff <= 1e-3 * b.abs() + 1e-6).all(dim=-1).float().mean().item()
+    mean_rel = abs(a.mean().item() - b.mean().item()) / b.mean().item()
+    log(f"[area] traversal vs dense route: {agree:.6f} of pixels within rel 1e-3, "
+        f"max abs diff {diff.max().item():.3e}, means {a.mean().item():.6f} / "
+        f"{b.mean().item():.6f} (rel {mean_rel:.2e})")
+    if agree < 0.99:
+        raise AssertionError("the traversal and dense routes disagree on config2")
+    return launches
+
+
+def phase_area_scene(device):
+    """tests/test_arealight.py's 4-triangle area scene under accel="auto":
+    a CUDA scene of at most DENSE_ACCEL_MAX_TRIS triangles takes the dense
+    kernel only."""
+    from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, render
+    from mc_path_tracer_tpu_torch.models.primitives import plane
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+
+    s = Scene()
+    s.set_environment_color((0, 0, 0), ls=0.0)
+    p, n, uv, idx = plane(20.0)
+    s.add_mesh(p, idx, normals=n, uvs=uv, material_id=s.add_material(albedo=(0.7, 0.5, 0.3)))
+    q = np.array([[-0.5, 2, -0.5], [0.5, 2, -0.5], [0.5, 2, 0.5], [-0.5, 2, 0.5]], np.float32)
+    s.add_mesh(q, np.array([[0, 1, 2], [0, 2, 3]]),
+               normals=np.tile([[0, -1, 0]], (4, 1)).astype(np.float32),
+               material_id=s.add_material(albedo=(0, 0, 0), emissive=(4.0, 3.0, 2.0)))
+    cam = PerspectiveCamera(position=np.array([0.6, 3.0, 2.5]), target=np.zeros(3),
+                            fov_deg=35.0)
+    sd = build_scene("area scene", s, device, 4)
+    _reset()
+    img = render(sd, cam, 64, 64, RenderConfig(spp=4, max_depth=3)).radiance_mean()
+    got = _launches()
+    log(f"[area] area scene 64x64 4 spp accel=auto: launches {got}, "
+        f"image mean {img.mean().item():.5f}")
+    others = {k: v for k, v in got.items() if k not in ("dense_closest", "dense_anyhit") and v}
+    if not got["dense_closest"] or not got["dense_anyhit"] or others:
+        raise AssertionError(f"the area scene did not take the dense kernel alone: {got}")
+
+
+def phase_stream(device, name_limit):
+    """The traversal kernel at the size the TPU's streaming kernel exists
+    for: tests_tpu.py's ten 224x224 UV spheres (1,003,520 triangles) built
+    through the port's Scene, 2,048 random rays, against plain."""
+    from mc_path_tracer_tpu_torch.models.primitives import uv_sphere
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+    from mc_path_tracer_tpu_torch.ops import intersect
+    from mc_path_tracer_tpu_torch.ops.kernels import traversal
+
+    s = Scene()
+    s.set_environment_color((0.5, 0.5, 0.5), ls=1.0)
+    mb = s.add_material(albedo=(0.7, 0.7, 0.7), roughness=0.6)
+    rng = np.random.default_rng(3)
+    for _ in range(10):
+        c = rng.uniform(-6, 6, 3)
+        c[1] = abs(c[1])
+        p, nn, uvs, idx = uv_sphere(1.2, center=tuple(c), rings=224, segments=224)
+        s.add_mesh(p, idx, normals=nn, uvs=uvs, material_id=mb)
+    sd = build_scene("stream scene", s, device, 1003520)
+    ro = torch.from_numpy(rng.uniform(-8, 8, (STREAM_RAYS, 3)).astype(np.float32)).to(device)
+    rd = torch.from_numpy(rng.normal(size=(STREAM_RAYS, 3)).astype(np.float32)).to(device)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    rays = intersect.pack_rays(ro, rd)
+    nodes, geo = sd.bvh.packed, sd.tris.geo
+    for name, fn, plain, check, out_bytes in (
+        ("closest", traversal.trace_closest, traversal.closest_plain, _check_closest, 8),
+        ("anyhit", traversal.trace_anyhit, traversal.anyhit_plain, _check_anyhit, 1),
+    ):
+        k_ms, k_out = _time_ms(lambda: fn(rays, nodes, geo), 20)
+        p_ms, p_out = _time_ms(lambda: plain(rays, geo), 1)
+        check(f"{STREAM_RAYS} rays, {geo.shape[0]} triangles", rays, k_out, p_out)
+        visits, tests = walk_counts(rays, nodes, geo, any_hit=name == "anyhit")
+        nbytes = (rays.numel() + nodes.numel() + geo.numel()) * 4 + rays.shape[0] * out_bytes
+        b_ms, b_by = bound(nbytes, visits * SLAB_FLOPS + tests * MT_FLOPS)
+        log(f"[stream] {name} {STREAM_RAYS} rays x {geo.shape[0]} triangles "
+            f"({sd.bvh.num_nodes} nodes): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}: {visits} node visits, {tests} triangle tests, "
+            f"{nbytes} bytes) ({name_limit})")
+
+
+def phase_imports():
+    loaded = sorted(m for m in sys.modules
+                    if m in ("jax", "jaxlib", "mc_path_tracer_tpu")
+                    or m.startswith(("jax.", "jaxlib.", "mc_path_tracer_tpu.")))
+    log(f"[imports] modules of JAX or the JAX package loaded: {loaded}")
+    if loaded:
+        raise AssertionError(f"the port loaded reference modules: {loaded[:5]}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--png", default="out/config2.png",
+                        help="config2's frames go to <stem>_auto.png and <stem>_dense.png")
+    args = parser.parse_args()
+    png = Path(args.png)
     name_limit = phase_device()
+    png.parent.mkdir(parents=True, exist_ok=True)
     device = torch.device("cuda", 0)
     phase_build()
     sd = phase_scene(device)
-    errs, times = phase_kernel_check(sd, device, name_limit)
-    launches, _ = phase_render(sd, device, name_limit)
+    stats = phase_kernel_check(sd, device, name_limit)
+    bench_launches, film = phase_render(sd, device, name_limit)
     phase_route_parity(sd, device)
-    jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
-    if jax_mods:
-        raise AssertionError(f"the port loaded JAX modules: {jax_mods[:5]}")
+    stats["tonemap"] = phase_tonemap(film, name_limit)
+    del sd, film
+    sd2, cam2, cfg2 = config2_scene(device)
+    stats.update(phase_dense(sd2, cam2, device, name_limit))
+    area_launches = phase_area(sd2, cam2, cfg2, device, png, name_limit)
+    phase_area_scene(device)
+    phase_stream(device, name_limit)
+    phase_imports()
+    launches = {"closest": bench_launches["closest"], "anyhit": bench_launches["anyhit"],
+                "dense_closest": area_launches["dense"]["dense_closest"],
+                "dense_anyhit": area_launches["dense"]["dense_anyhit"],
+                "tonemap": area_launches["dense"]["tonemap"]}
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("closest", "anyhit")
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "bound_ms": stats[name]["bound_ms"], "bound_by": stats[name]["bound_by"],
+         "library_ms": None}
+        for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(name_limit)

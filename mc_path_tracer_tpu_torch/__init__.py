@@ -2,21 +2,27 @@
 
 The JAX package beside it is the reference: every module here mirrors the
 module of the same name there and is held against it by the tests in
-`tests/test_torch_*.py`.  Plain tensor code is PyTorch; the BVH traversal
-(closest hit and any hit) is a hand-written CUDA kernel for Hopper
-(`csrc/traversal.cu`), built with nvcc at first use.  On CPU tensors every
-kernel wrapper runs its plain PyTorch version instead.
+`tests/test_torch_*.py`.  Plain tensor code is PyTorch; BVH traversal
+(`csrc/traversal.cu`), dense all-triangle intersection (`csrc/dense.cu`)
+and the tone map (`csrc/tonemap.cu`) are hand-written CUDA kernels for
+Hopper, built with nvcc at first use.  Entry points run on the card unless
+given device="cpu"; on CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
 
 Layout:
   ops/       numerics: math conventions, threefry streams, samplers, BRDFs,
              environment CDFs, intersection, BVH build, tone mapping.
   ops/kernels/  the nvcc build and the kernel wrappers with their plain
              versions and launch counters.
-  csrc/      CUDA sources.
+  csrc/      CUDA sources and the native BVH builder (C++).
   models/    camera, film, materials, lights, mesh primitives, scene,
              integrator.
+  utils/     host code: the native builder's binding, image IO, mesh
+             attributes.
+  configs.py the verification configs ported so far.
 
-This package imports torch and numpy, never jax.
+This package imports torch and numpy, never jax and nothing of the JAX
+package.
 """
 
 __version__ = "0.1.0"

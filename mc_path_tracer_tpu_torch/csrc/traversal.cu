@@ -26,9 +26,10 @@
 // chain, and persistent threads that refill finished lanes.
 //
 // Numerics: the arithmetic is written in the operation order of
-// mc_path_tracer_tpu/ops/intersect.py (moller_trumbore, _slab_test) and is
-// built with --fmad=false, so it rounds exactly as the plain PyTorch
-// version does on the card and the two agree on nearly every lane.
+// mc_path_tracer_tpu/ops/intersect.py (moller_trumbore, shared with the
+// dense kernel in mt.cuh, and _slab_test) and is built with --fmad=false,
+// so it rounds exactly as the plain PyTorch version does on the card and
+// the two agree on nearly every lane.
 //
 // Layout (row-major f32):
 //   rays  [R, 8]  o.xyz, d.xyz, live, t_max
@@ -41,53 +42,22 @@
 
 #include <cuda_runtime.h>
 
+#include "mt.cuh"
+
 namespace {
 
-constexpr float kEpsilon = 1e-6f;
-constexpr float kHuge = 1e32f;
+using mcpt::kHuge;
+using mcpt::load_ray;
+using mcpt::load_tri;
+using mcpt::moller_trumbore;
+using mcpt::Ray;
+
 constexpr int kThreads = 128;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, live, t_max;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int i) {
-  const float4* r = reinterpret_cast<const float4*>(rays) + 2 * i;
-  float4 a = __ldg(r);
-  float4 b = __ldg(r + 1);
-  return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-}
 
 // jnp.reciprocal(where(|d| > 1e-12, d, where(d >= 0, 1e-12, -1e-12)))
 __device__ __forceinline__ float safe_inv(float d) {
   float g = fabsf(d) > 1e-12f ? d : (d >= 0.0f ? 1e-12f : -1e-12f);
   return 1.0f / g;
-}
-
-// Moller-Trumbore in the reference operation order; returns valid, writes t.
-__device__ __forceinline__ bool moller_trumbore(const Ray& r,
-                                                const float* __restrict__ g,
-                                                float* t_out) {
-  const float v0x = __ldg(g + 0), v0y = __ldg(g + 1), v0z = __ldg(g + 2);
-  const float e1x = __ldg(g + 3), e1y = __ldg(g + 4), e1z = __ldg(g + 5);
-  const float e2x = __ldg(g + 6), e2y = __ldg(g + 7), e2z = __ldg(g + 8);
-  // pvec = cross(d, e2)
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv_det = 1.0f / (fabsf(det) > 1e-30f ? det : 1.0f);
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
-  // qvec = cross(tvec, e1)
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  *t_out = t;
-  return det >= kEpsilon && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-         u + v <= 1.0f && t >= 0.0f;
 }
 
 // Walks the threaded tree for one ray.  ANY_HIT stops at the first valid
@@ -134,7 +104,7 @@ __device__ __forceinline__ void traverse(const Ray& r,
     const int first = meta >> 4;
     for (int k = 0; k < count; ++k) {
       float t;
-      const bool valid = moller_trumbore(r, geo + 9LL * (first + k), &t);
+      const bool valid = moller_trumbore(r, load_tri(geo + 9LL * (first + k)), &t);
       if (ANY_HIT) {
         if (valid && t <= r.t_max) {
           occ = true;

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.math import normalize
 from mc_path_tracer_tpu_torch.ops.sampling import sample_concentric_disk
 
@@ -97,8 +98,9 @@ class PerspectiveCamera:
         proj[3, 2] = -1.0
         return view, proj, proj @ view
 
-    def params(self, device=None) -> CameraParams:
+    def params(self, device=DEFAULT_DEVICE) -> CameraParams:
         """CameraParams on `device`: f64 inverses on the host, then f32."""
+        device = resolve_device(device)
         view, _, view_proj = self.matrices()
         inv_vp = np.linalg.inv(view_proj).astype(np.float32)
         inv_v = np.linalg.inv(view).astype(np.float32)

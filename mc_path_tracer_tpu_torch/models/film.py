@@ -1,5 +1,7 @@
 """Film: accumulated radiance and per-pixel sample counts, and the traversal
-tile order (port of mc_path_tracer_tpu/models/film.py)."""
+tile order (port of mc_path_tracer_tpu/models/film.py).  `to_uint8` and
+`save_png` of a film on the card go through the tone-map kernel
+(ops/kernels/tonemap.py); a film on the CPU through its plain version."""
 
 from __future__ import annotations
 
@@ -8,8 +10,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mc_path_tracer_tpu.utils.image import write_png
 from mc_path_tracer_tpu_torch.ops import tonemap
+from mc_path_tracer_tpu_torch.ops.kernels import tonemap as tonemap_kernel
+from mc_path_tracer_tpu_torch.utils.image import write_png
 
 
 class Film(NamedTuple):
@@ -28,7 +31,8 @@ class Film(NamedTuple):
         return tonemap.reinhard(self.ld, self.samples, exposure)
 
     def to_uint8(self, exposure: float = 1.0) -> np.ndarray:
-        return tonemap.quantize(self.to_display(exposure)).cpu().numpy()
+        return tonemap_kernel.tonemap(
+            self.ld.contiguous(), self.samples.contiguous(), exposure).cpu().numpy()
 
     def save_png(self, path: str, exposure: float = 1.0) -> None:
         write_png(path, self.to_uint8(exposure))

@@ -5,13 +5,21 @@ Each bounce is straight-line masked tensor code over the block's rays; dead
 lanes are predicated off with `where`.  Per bounce the integrator makes one
 closest-hit dispatch (the extension ray) and one fused any-hit dispatch of
 2R rays (the light sample's shadow ray and the BRDF sample's visibility
-ray).  On CUDA tensors with accel="auto" both go to the hand-written
-traversal kernel; on CPU tensors, and always with accel="brute", to its
-plain brute-force version.  Everything between the dispatches is plain
-PyTorch.
+ray).  With an area light it makes, per NEE bounce, one R-lane bounded
+any-hit (the shadow ray, t_max short of the sampled light point) and one
+R-lane closest hit (the BRDF ray: did it reach the emitter?) instead of the
+fused 2R any-hit.  Everything between the dispatches is plain PyTorch.
+
+Routes (`resolve_accel`, a pure function of triangle count, device and
+RenderConfig.accel): "auto" on a CUDA scene of at most
+DENSE_ACCEL_MAX_TRIS triangles takes the dense kernel (csrc/dense.cu),
+any larger one the traversal kernel (csrc/traversal.cu); "dense" forces
+the dense kernel; "brute" calls the plain brute-force version.  On CPU
+tensors every kernel wrapper runs that plain version.
 
 Estimator (the reference's wavefront kernels, as in the JAX package):
-environment radiance on primary miss; next-event estimation at hits
+environment radiance on primary miss, emission on a primary hit of an
+emissive triangle (scenes with an area light); next-event estimation at hits
 1..max_depth-1 combining a light sample and a BRDF sample with the power
 heuristic (delta lights take the light sample at full weight); 50/50
 specular/diffuse continuation; Russian roulette from bounce `rr_start`
@@ -25,10 +33,9 @@ Sampled directions, pdfs, MIS weights and intersections are detached
 (`stop_gradient` in the JAX package); gradients are not ported yet.
 
 Not ported yet (ROADMAP Queue 1), and refused with NotImplementedError:
-reuse_brdf_ray=True, emissive triangles (scene build), textures (scene
-build), and accel values other than "auto" and "brute".  `sort_rays` is
-accepted but not applied: sorting only permutes kernel lanes and never
-changes the result.
+reuse_brdf_ray=True, textures (scene build), and accel values other than
+"auto", "dense" and "brute".  `sort_rays` is accepted but not applied:
+sorting only permutes kernel lanes and never changes the result.
 """
 
 from __future__ import annotations
@@ -39,13 +46,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.models import camera as camera_mod
 from mc_path_tracer_tpu_torch.models import lights as lights_mod
 from mc_path_tracer_tpu_torch.models.film import Film, tile_order
 from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import brdf, rng
 from mc_path_tracer_tpu_torch.ops.intersect import Hit, finish_closest, pack_rays
-from mc_path_tracer_tpu_torch.ops.kernels import traversal
+from mc_path_tracer_tpu_torch.ops.kernels import dense, traversal
 from mc_path_tracer_tpu_torch.ops.sampling import power_heuristic
 
 # reference constants (wavefront_kernels.cu)
@@ -57,6 +65,10 @@ RR_MIN_Q = 0.05
 DEFAULT_SPP = 250
 DEFAULT_MAX_DEPTH = 5
 PIXEL_CHUNK = 65536
+# scenes at or below this triangle count skip the BVH on the card: the dense
+# kernel tests every triangle (the JAX package's _resolve_accel threshold)
+DENSE_ACCEL_MAX_TRIS = 2048
+ACCELS = ("auto", "dense", "brute")
 
 
 @dataclass(frozen=True)
@@ -65,7 +77,7 @@ class RenderConfig:
 
     spp: int = DEFAULT_SPP
     max_depth: int = DEFAULT_MAX_DEPTH
-    accel: str = "auto"            # "auto" (kernel on CUDA) | "brute" (plain)
+    accel: str = "auto"            # "auto" | "dense" | "brute" (resolve_accel)
     # JAX parity only, no effect: the JAX traversal unrolls this many leaf
     # slots, while the port's traversal reads each leaf's own triangle count
     # (the tree's leaf size is Scene.max_leaf)
@@ -84,10 +96,10 @@ def _check_supported(cfg: RenderConfig) -> None:
     if cfg.mis_mode not in ("mis", "light", "brdf"):
         raise ValueError(f"unknown mis_mode {cfg.mis_mode!r} "
                          "(expected 'mis', 'light' or 'brdf')")
-    if cfg.accel not in ("auto", "brute"):
+    if cfg.accel not in ACCELS:
         raise NotImplementedError(
             f"accel={cfg.accel!r} is not ported yet (ROADMAP Queue 2); "
-            "use 'auto' or 'brute'")
+            f"use one of {ACCELS}")
     if cfg.reuse_brdf_ray and not cfg.reference_quirks:
         raise NotImplementedError(
             "reuse_brdf_ray=True is not ported yet: ROADMAP Queue 1, reuse_brdf_ray")
@@ -97,19 +109,36 @@ def _detach(h: Hit) -> Hit:
     return Hit(*(x.detach() for x in h))
 
 
-def _intersect(scene: SceneData, cfg: RenderConfig, ro, rd, mask=None) -> Hit:
+def resolve_accel(num_triangles: int, device, accel: str) -> str:
+    """The intersection route: "bvh" (traversal kernel), "dense" (dense
+    kernel) or "brute" (plain version).  "auto" takes the dense kernel for
+    CUDA scenes of at most DENSE_ACCEL_MAX_TRIS triangles, as the JAX
+    package's _resolve_accel does on its accelerator, else the traversal."""
+    if accel in ("dense", "brute"):
+        return accel
+    if accel != "auto":
+        raise ValueError(f"unknown accel {accel!r}")
+    on_card = torch.device(device).type == "cuda"
+    return "dense" if on_card and num_triangles <= DENSE_ACCEL_MAX_TRIS else "bvh"
+
+
+def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
     rays = pack_rays(ro, rd, mask)
-    if cfg.accel == "brute":
+    if route == "brute":
         _, tri_id = traversal.closest_plain(rays, scene.tris.geo)
+    elif route == "dense":
+        _, tri_id = dense.dense_closest(rays, scene.tris.geo)
     else:
         _, tri_id = traversal.trace_closest(rays, scene.bvh.packed, scene.tris.geo)
-    return finish_closest(scene.tris, tri_id, ro, rd)
+    return _detach(finish_closest(scene.tris, tri_id, ro, rd))
 
 
-def _occluded(scene: SceneData, cfg: RenderConfig, ro, rd, mask=None, t_max=None):
+def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
     rays = pack_rays(ro, rd, mask, t_max)
-    if cfg.accel == "brute":
+    if route == "brute":
         return traversal.anyhit_plain(rays, scene.tris.geo)
+    if route == "dense":
+        return dense.dense_anyhit(rays, scene.tris.geo)
     return traversal.trace_anyhit(rays, scene.bvh.packed, scene.tris.geo)
 
 
@@ -123,19 +152,25 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
     if pid is None:
         pid = torch.arange(num_rays, dtype=torch.int32, device=ray_o.device)
     quirks = cfg.reference_quirks
+    route = resolve_accel(scene.tris.num_triangles, ray_o.device, cfg.accel)
     lights = lights_mod.with_packed(scene.lights)
     n_lights = lights_mod.num_lights(lights)
+    aid = lights_mod.area_light_id(lights)  # -1 when there is no area light
 
     l_out = torch.zeros((num_rays, 3), dtype=torch.float32, device=ray_o.device)
     beta = torch.ones((num_rays, 3), dtype=torch.float32, device=ray_o.device)
 
-    isect = _detach(_intersect(scene, cfg, ray_o, ray_d))
+    isect = _intersect(scene, route, ray_o, ray_d)
 
     # background on primary miss; quirk mode adds it once per light
     env_id = torch.zeros(num_rays, dtype=torch.int64, device=ray_o.device)
     bg = lights_mod.radiance(lights, env_id, ray_d)
     bg_scale = float(n_lights) if quirks else 1.0
     l_out = l_out + torch.where(isect.hit[..., None], 0.0, bg * bg_scale)
+    # emitters seen directly by the camera
+    if aid >= 0:
+        prim_emit = scene.materials.emission(isect.material_id)
+        l_out = l_out + torch.where(isect.hit[..., None], prim_emit, 0.0)
 
     alive = isect.hit
     wo = -ray_d
@@ -155,6 +190,25 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
         li_light = lights_mod.radiance(lights, l_id, wl)
         pdf_light = lights_mod.pdf(lights, l_id, wl,
                                    env_importance=cfg.env_importance).detach()
+        shadow_tmax = None
+        if aid >= 0:
+            # the area sample reads u[:, 1:4]: its third uniform is u[:, 3],
+            # which also picks the BRDF sample's lobe below, as in the JAX
+            # package (a correlation of two unbiased estimators, kept for
+            # pixel parity)
+            is_area = l_id == aid
+            wl_a, dist_a, li_a, pdf_a = lights_mod.sample_area(
+                lights.area, scene.tris, pos, u[:, 1:4])
+            wl_a, dist_a, pdf_a = wl_a.detach(), dist_a.detach(), pdf_a.detach()
+            wl = torch.where(is_area[..., None], wl_a, wl)
+            li_light = torch.where(is_area[..., None], li_a, li_light)
+            pdf_light = torch.where(is_area, pdf_a, pdf_light)
+            # bounded shadow ray: blockers strictly between surface and
+            # light; the 2 * SHADOW_OFFSET margin covers the origin's offset
+            # so the emitter never occludes itself
+            shadow_tmax = torch.where(
+                is_area, dist_a * (1.0 - 1e-3) - 2.0 * SHADOW_OFFSET,
+                torch.full_like(dist_a, 1e32))
         shadow_o = pos + n * SHADOW_OFFSET
         f_light = brdf.mixture_f(mat, n, wl, wo)
         pdf_brdf_at_wl = torch.where(
@@ -169,19 +223,34 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
         f_at_wb = brdf.mixture_f(mat, n, wb, wo)
         pdf_at_wb = brdf.mixture_pdf(mat, n, wb, wo).detach()
 
-        # one fused any-hit dispatch for the shadow and visibility rays
         vis_o = pos + wb * VIS_OFFSET
-        occ2 = _occluded(
-            scene, cfg,
-            torch.cat([shadow_o, vis_o], dim=0),
-            torch.cat([wl, wb], dim=0),
-            mask=torch.cat([sh_mask, alive & ~delta], dim=0),
-        )
-        visible = ~occ2[:num_rays] & alive
-        vis2 = ~occ2[num_rays:] & ~delta & alive
-        li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
-        pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
-                                         env_importance=cfg.env_importance)
+        if aid >= 0:
+            # the bounded shadow any-hit, then the BRDF ray's closest hit:
+            # did it reach the emitter?  (Env visibility is its miss.)
+            visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask,
+                                 t_max=shadow_tmax) & alive
+            hit_b = _intersect(scene, route, vis_o, wb, mask=alive & ~delta)
+            li_hit, pdf_sa_hit, on_light = lights_mod.area_eval_hit(
+                lights.area, scene.tris, hit_b, vis_o)
+            vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & alive
+            li_brdf_raw = torch.where(
+                is_area[..., None], li_hit, lights_mod.radiance(lights, l_id, wb))
+            pdf_l_at_wb_raw = torch.where(
+                is_area, pdf_sa_hit.detach(),
+                lights_mod.pdf(lights, l_id, wb, env_importance=cfg.env_importance))
+        else:
+            # one fused any-hit dispatch for the shadow and visibility rays
+            occ2 = _occluded(
+                scene, route,
+                torch.cat([shadow_o, vis_o], dim=0),
+                torch.cat([wl, wb], dim=0),
+                mask=torch.cat([sh_mask, alive & ~delta], dim=0),
+            )
+            visible = ~occ2[:num_rays] & alive
+            vis2 = ~occ2[num_rays:] & ~delta & alive
+            li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
+            pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
+                                             env_importance=cfg.env_importance)
         f_brdf = torch.where(vis2[..., None], f_at_wb, 0.0)
         li_brdf = torch.where(vis2[..., None], li_brdf_raw, 0.0)
         pdf_brdf = torch.where(vis2, pdf_at_wb, 1.0).detach()
@@ -233,8 +302,7 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
         if bounce < cfg.max_depth - 1:
             ray_d = ws
             wo = -ray_d
-            isect = _detach(
-                _intersect(scene, cfg, pos + n * EXT_OFFSET, ray_d, mask=alive))
+            isect = _intersect(scene, route, pos + n * EXT_OFFSET, ray_d, mask=alive)
             alive = alive & isect.hit
 
     return l_out
@@ -275,7 +343,7 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     return torch.cat(blocks, dim=0)
 
 
-def camera_params(camera, width: int, height: int, device=None):
+def camera_params(camera, width: int, height: int, device=DEFAULT_DEVICE):
     """A host PerspectiveCamera (aspect set from the film size) or
     ready-made CameraParams."""
     if isinstance(camera, camera_mod.CameraParams):
@@ -285,15 +353,17 @@ def camera_params(camera, width: int, height: int, device=None):
 
 def render(scene, camera, width: int, height: int,
            cfg: RenderConfig = RenderConfig(), key: torch.Tensor | None = None,
-           device=None) -> Film:
-    """Render a full frame.  `scene` is a Scene (built on `device`) or a
-    SceneData (rendered on its own device).  Pixels are traced in 32x16
-    tile-major order and scattered back to image layout."""
+           device=DEFAULT_DEVICE) -> Film:
+    """Render a full frame.  `scene` is a Scene (built on `device`, the card
+    unless device="cpu") or a SceneData (rendered on its own device).
+    Pixels are traced in 32x16 tile-major order and scattered back to image
+    layout."""
     _check_supported(cfg)
     if isinstance(scene, SceneData):
         scene_data = scene
         device = scene_data.tris.v0.device
     else:
+        device = resolve_device(device)
         scene_data = scene.build(device)
     if key is None:
         key = rng.prng_key(0)

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.brdf import MaterialParams
 
 TEXTURE_FIELDS = ("albedo_tex", "mr_tex", "emissive_tex", "normal_tex", "ao_tex")
@@ -58,11 +59,12 @@ class MaterialTable(NamedTuple):
 
 
 def make_material_table(albedo, roughness, metallic, fresnel=None, emissive=None,
-                        device=None, **tex) -> MaterialTable:
+                        device=DEFAULT_DEVICE, **tex) -> MaterialTable:
     """Table from host arrays; `tex` takes the TEXTURE_FIELDS id arrays."""
     unknown = set(tex) - set(TEXTURE_FIELDS)
     if unknown:
         raise TypeError(f"unknown texture fields {sorted(unknown)}")
+    device = resolve_device(device)
     albedo_np = np.atleast_2d(np.asarray(albedo, np.float32))
     m = albedo_np.shape[0]
 

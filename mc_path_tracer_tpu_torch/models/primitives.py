@@ -32,6 +32,36 @@ def uv_sphere(radius=1.0, center=(0, 0, 0), rings=32, segments=64):
     )
 
 
+def box(size=(1, 1, 1), center=(0, 0, 0)):
+    """Axis-aligned box with outward faces (per-face normals)."""
+    sx, sy, sz = [s / 2 for s in size]
+    c = np.asarray(center, np.float32)
+    faces = [
+        # (normal, corner offsets in CCW order seen from outside)
+        ((1, 0, 0), [(sx, -sy, -sz), (sx, sy, -sz), (sx, sy, sz), (sx, -sy, sz)]),
+        ((-1, 0, 0), [(-sx, -sy, sz), (-sx, sy, sz), (-sx, sy, -sz), (-sx, -sy, -sz)]),
+        ((0, 1, 0), [(-sx, sy, -sz), (-sx, sy, sz), (sx, sy, sz), (sx, sy, -sz)]),
+        ((0, -1, 0), [(-sx, -sy, sz), (-sx, -sy, -sz), (sx, -sy, -sz), (sx, -sy, sz)]),
+        ((0, 0, 1), [(-sx, -sy, sz), (sx, -sy, sz), (sx, sy, sz), (-sx, sy, sz)]),
+        ((0, 0, -1), [(sx, -sy, -sz), (-sx, -sy, -sz), (-sx, sy, -sz), (sx, sy, -sz)]),
+    ]
+    vs, ns, uvs, idx = [], [], [], []
+    for n, corners in faces:
+        base = len(vs)
+        for k, p in enumerate(corners):
+            vs.append(c + np.asarray(p, np.float32))
+            ns.append(np.asarray(n, np.float32))
+            uvs.append([float(k in (1, 2)), float(k in (2, 3))])
+        idx.append([base, base + 1, base + 2])
+        idx.append([base, base + 2, base + 3])
+    return (
+        np.asarray(vs, np.float32),
+        np.asarray(ns, np.float32),
+        np.asarray(uvs, np.float32),
+        np.asarray(idx, np.int64),
+    )
+
+
 def plane(size=20.0, center=(0, 0, 0), normal_axis="y"):
     """Two-triangle quad facing +axis."""
     h = size / 2

@@ -3,17 +3,18 @@
 
 `Scene` keeps the JAX package's editing calls for meshes, untextured
 materials, directional lights and the environment; `build(device)` bakes
-the meshes, builds the BVH, reorders the triangles into leaf order and
-returns a `SceneData` of tensors on `device`.  The light table is
-[environment, directionals...], and a default Color-mode environment
-always exists.
+the meshes, builds the BVH, reorders the triangles into leaf order, turns
+the triangles of emissive materials into the area light, and returns a
+`SceneData` of tensors on `device` (the card unless device="cpu").  The
+light table is [environment, directionals..., area?], and a default
+Color-mode environment always exists.
 
 `scene_data_from_arrays` takes a built scene flattened to numpy arrays by
 dotted field path (see `scene_arrays`) and returns the port's SceneData, so
 the port and the JAX package can compute on identical scene arrays.
 
-Not ported yet (ROADMAP Queue 1): emissive triangles (area lights),
-textures, object transforms and glTF loading.
+Not ported yet (ROADMAP Queue 1): textures, object transforms and glTF
+loading.
 """
 
 from __future__ import annotations
@@ -24,8 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mc_path_tracer_tpu.utils import native
-from mc_path_tracer_tpu.utils.image import load_hdr
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.models import lights as lights_mod
 from mc_path_tracer_tpu_torch.models.materials import (
     TEXTURE_FIELDS,
@@ -35,8 +35,10 @@ from mc_path_tracer_tpu_torch.models.materials import (
 from mc_path_tracer_tpu_torch.ops import envmap
 from mc_path_tracer_tpu_torch.ops.bvh import build_bvh
 from mc_path_tracer_tpu_torch.ops.intersect import BVHArrays, TriangleSoA
+from mc_path_tracer_tpu_torch.utils import native
+from mc_path_tracer_tpu_torch.utils.image import load_hdr
+from mc_path_tracer_tpu_torch.utils.mesh import compute_tangents, smooth_normals
 
-AREA_LIGHTS_TODO = "emissive triangles (area lights) are not ported yet: ROADMAP Queue 1, area lights"
 TEXTURES_TODO = "textured materials are not ported yet: ROADMAP Queue 1, textures"
 
 
@@ -51,8 +53,6 @@ class SceneData(NamedTuple):
 
 def _mesh_to_soa(positions, normals, uvs, indices, material_id, tangents=None):
     """Host triangle arrays of one mesh (keys of TriangleSoA + tan0..2)."""
-    from mc_path_tracer_tpu.utils.gltf import compute_tangents
-
     p = np.asarray(positions, np.float32)
     n = np.asarray(normals, np.float32)
     uv = np.asarray(uvs, np.float32)
@@ -110,9 +110,7 @@ class Scene:
         positions = np.asarray(positions, np.float32)
         indices = np.asarray(indices)
         if normals is None:
-            from mc_path_tracer_tpu.utils.gltf import _smooth_normals
-
-            normals = _smooth_normals(positions, np.asarray(indices, np.int64))
+            normals = smooth_normals(positions, np.asarray(indices, np.int64))
         if uvs is None:
             uvs = np.zeros((positions.shape[0], 2), np.float32)
         self.meshes.append((positions, np.asarray(normals, np.float32),
@@ -135,15 +133,12 @@ class Scene:
         self.directional.append((np.asarray(direction, np.float32),
                                  np.asarray(color, np.float32), float(ls)))
 
-    def build(self, device=None) -> SceneData:
+    def build(self, device=DEFAULT_DEVICE) -> SceneData:
         if not self.meshes:
             raise ValueError("Scene has no geometry")
+        device = resolve_device(device)
         if not self.material_albedo:
             self.add_material()
-        emissive = np.stack(self.material_emissive)
-        used = np.unique([m[4] for m in self.meshes])
-        if (emissive[used].sum(axis=-1) > 0.0).any():
-            raise NotImplementedError(AREA_LIGHTS_TODO)
         bvh, tris, builder = build_bvh(
             _concat([_mesh_to_soa(*m) for m in self.meshes]),
             max_leaf=self.max_leaf, method=self.bvh_method, device=device,
@@ -154,7 +149,7 @@ class Scene:
             np.asarray(self.material_roughness, np.float32),
             np.asarray(self.material_metallic, np.float32),
             fresnel=np.stack(self.material_fresnel),
-            emissive=emissive,
+            emissive=np.stack(self.material_emissive),
             device=device,
         )
         if self.env_tex is not None:
@@ -170,8 +165,12 @@ class Scene:
             )
         else:
             dl = lights_mod.empty_directional(device)
+        # emissive triangles -> the area light, indexed in leaf order
+        tri_emission = np.stack(self.material_emissive)[tris.material_id.cpu().numpy()]
+        area = lights_mod.make_area_lights(
+            tris, tri_emission.sum(axis=-1) > 0.0, tri_emission, device)
         return SceneData(tris=tris, bvh=bvh, materials=materials,
-                         lights=lights_mod.LightSet(env=env, directional=dl))
+                         lights=lights_mod.LightSet(env=env, directional=dl, area=area))
 
 
 def scene_arrays(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -191,18 +190,19 @@ def scene_arrays(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def scene_data_from_arrays(arrays: dict[str, np.ndarray], device=None) -> SceneData:
+def scene_data_from_arrays(arrays: dict[str, np.ndarray],
+                          device=DEFAULT_DEVICE) -> SceneData:
     """SceneData on `device` from a built scene flattened by scene_arrays.
     Fields the port has no use for (the TPU layouts `wide` and `leaf`) are
-    ignored; a scene with area lights or textures is refused."""
+    ignored; a scene with textures is refused."""
+    device = resolve_device(device)
+
     def get(key):
         return torch.tensor(arrays[key], device=device)
 
     def opt(key):
         return get(key) if key in arrays else None
 
-    if arrays.get("lights.area.tri_idx", np.zeros(0)).size:
-        raise NotImplementedError(AREA_LIGHTS_TODO)
     if any((arrays[f"materials.{f}"] >= 0).any() for f in TEXTURE_FIELDS
            if f"materials.{f}" in arrays):
         raise NotImplementedError(TEXTURES_TODO)
@@ -228,5 +228,10 @@ def scene_data_from_arrays(arrays: dict[str, np.ndarray], device=None) -> SceneD
     dl = lights_mod.DirectionalLights(
         **{f: get(f"lights.directional.{f}") for f in lights_mod.DirectionalLights._fields}
     )
+    area = (
+        lights_mod.AreaLights(
+            **{f: get(f"lights.area.{f}") for f in lights_mod.AreaLights._fields})
+        if "lights.area.tri_idx" in arrays else lights_mod.empty_area(device)
+    )
     return SceneData(tris=tris, bvh=bvh, materials=materials,
-                     lights=lights_mod.LightSet(env=env, directional=dl))
+                     lights=lights_mod.LightSet(env=env, directional=dl, area=area))

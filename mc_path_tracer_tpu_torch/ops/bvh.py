@@ -1,12 +1,11 @@
 """Binary threaded BVH build and leaf-order triangle reorder (port of the
 numpy parts of mc_path_tracer_tpu/ops/bvh.py).
 
-Per-triangle world bounds -> the JAX package's native C++ builder
-(mc_path_tracer_tpu/native/bvh.cpp through utils/native, jax-free) or, where
-it cannot be built, the numpy median builder -> threaded depth-first node
-arrays, the packed [N, 8] node table, and the triangles reordered into leaf
-order with their packed shading rows.  All host numpy; tensors move to the
-device once, at the end.
+Per-triangle world bounds -> the native C++ builder (csrc/bvh.cpp through
+utils/native) or, where it cannot be built, the numpy median builder ->
+threaded depth-first node arrays, the packed [N, 8] node table, and the
+triangles reordered into leaf order with their packed shading rows.  All
+host numpy; tensors move to the device once, at the end.
 """
 
 from __future__ import annotations
@@ -14,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mc_path_tracer_tpu.utils import native
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.intersect import BVHArrays, TriangleSoA
+from mc_path_tracer_tpu_torch.utils import native
 
 _TRI_FIELDS = (
     "v0", "e1", "e2", "n0", "n1", "n2",
@@ -92,13 +92,14 @@ def _packed_nodes(nb_min, nb_max, first, count, skip) -> np.ndarray:
 
 
 def build_bvh(tris: dict[str, np.ndarray], max_leaf: int = 4,
-              method: int = native.SAH, device=None):
+              method: int = native.SAH, device=DEFAULT_DEVICE):
     """Build the threaded BVH over host triangle arrays (keys of
     TriangleSoA, optional tan0..tan2) and reorder the triangles into leaf
     order.  Returns (BVHArrays, TriangleSoA, builder) on `device`, with
     builder "native" or "numpy"."""
     if max_leaf > 15:
         raise ValueError("packed node meta reserves 4 bits for the leaf count")
+    device = resolve_device(device)
     v0 = np.asarray(tris["v0"], np.float32)
     e1 = np.asarray(tris["e1"], np.float32)
     e2 = np.asarray(tris["e2"], np.float32)

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.math import INV_4PI, PI, equirect_dir, equirect_uv
 from mc_path_tracer_tpu_torch.ops.sampling import sample_uniform_sphere
 
@@ -30,10 +31,11 @@ class EnvMapDistribution(NamedTuple):
     pdf_texture: torch.Tensor   # [H, W] per-texel pdf (lum * sin / denom)
 
 
-def build_distribution(tex, device=None) -> EnvMapDistribution:
+def build_distribution(tex, device=DEFAULT_DEVICE) -> EnvMapDistribution:
     """Sampling tables from an equirect HDR texture [H, W, 3], built on the
     host in numpy (the JAX package's host build, same arithmetic) and moved
     to `device` once."""
+    device = resolve_device(device)
     tex = np.asarray(tex, np.float32)
     h = tex.shape[0]
     lum = tex @ np.asarray([0.299, 0.587, 0.114], np.float32)

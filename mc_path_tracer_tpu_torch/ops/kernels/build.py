@@ -2,10 +2,11 @@
 plain C interface, loaded with ctypes.
 
 A library builds at first use into `build/kernels/` at the root of the
-checkout (listed in .gitignore), named by a hash of its source and flags,
-so a changed source rebuilds and an unchanged one loads.  Only sources in
-this repository are compiled: no library kernels, no torch headers.
-A failed nvcc raises with its stderr.
+checkout (listed in .gitignore), named by a hash of its source, of every
+csrc header it includes (`#include "x.cuh"`, followed recursively) and of
+the flags, so a changed source or header rebuilds and an unchanged one
+loads.  Only sources in this repository are compiled: no library kernels,
+no torch headers.  A failed nvcc raises with its stderr.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,8 +42,29 @@ def nvcc_path() -> str:
                        "CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: Path) -> list[Path]:
+    """The local headers `source` includes, directly or through another
+    header, in first-seen order."""
+    seen: list[Path] = []
+    todo = [source]
+    while todo:
+        including = todo.pop(0)
+        for name in _INCLUDE.findall(including.read_bytes()):
+            header = (including.parent / name.decode()).resolve()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(source.read_bytes())
+    for header in included_headers(source):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -61,30 +84,56 @@ class BuildInfo(NamedTuple):
 _LOADED: dict[str, tuple[ctypes.CDLL, BuildInfo]] = {}
 
 
+def load_all(names) -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:
+    """Build (where needed) and load csrc/<name>.cu for each name, cached
+    per process.  The missing libraries build in parallel: one nvcc per
+    source, all started together; each builds to a private name and is
+    then renamed, so concurrent builders never load a half-written
+    library."""
+    todo = [n for n in dict.fromkeys(names) if n not in _LOADED]
+    jobs = []
+    try:
+        for name in todo:
+            source = CSRC_DIR / f"{name}.cu"
+            out = library_path(source)
+            if out.exists():
+                jobs.append((name, source, out, None, None, 0.0))
+                continue
+            nvcc = nvcc_path()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.Popen(nvcc_command(source, Path(tmp), nvcc),
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)
+            except OSError:
+                os.unlink(tmp)
+                raise
+            jobs.append((name, source, out, proc, tmp, time.perf_counter()))
+        built = {}
+        for name, source, out, proc, tmp, t0 in jobs:
+            seconds, log = 0.0, ""
+            if proc is not None:
+                _, log = proc.communicate(timeout=600)
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {source} (exit {proc.returncode}):\n{log}")
+                os.replace(tmp, out)
+            built[name] = (out, seconds, log)
+    finally:
+        for _, _, _, proc, tmp, _ in jobs:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp is not None and os.path.exists(tmp):
+                os.unlink(tmp)
+    for name, (out, seconds, log) in built.items():
+        _LOADED[name] = (ctypes.CDLL(str(out)), BuildInfo(out, seconds, log))
+    return {name: _LOADED[name] for name in names}
+
+
 def load(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (if needed) and load csrc/<name>.cu; cached per process."""
-    if name in _LOADED:
-        return _LOADED[name]
-    source = CSRC_DIR / f"{name}.cu"
-    out = library_path(source)
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build to a private name, then rename: concurrent builders never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(nvcc_command(source, Path(tmp), nvcc_path()),
-                              capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-        log = proc.stderr
-    lib = ctypes.CDLL(str(out))
-    _LOADED[name] = (lib, BuildInfo(out, seconds, log))
-    return _LOADED[name]
+    return load_all([name])[name]

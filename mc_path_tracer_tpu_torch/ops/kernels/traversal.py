@@ -10,10 +10,10 @@ Contract (see ops/intersect.py for the layouts):
   trace_anyhit(rays, nodes, geo) -> occ [R] bool: some triangle hit with
       t <= t_max; False on a dead lane.
 
-A wrapper runs the plain version only because its tensors lie on the CPU;
-on a CUDA tensor it launches the kernel or raises.  LAUNCHES counts kernel
-launches per entry point and plain-version calls, so a run can show which
-path it took.
+The plain versions are the dense kernel's (ops/kernels/dense.py) too: they
+are all rays x all triangles with lowest-index ties.  A wrapper runs the
+plain version only because its tensors lie on the CPU; on a CUDA tensor it
+launches the kernel or raises.  LAUNCHES (ops/kernels) counts the launches.
 """
 
 from __future__ import annotations
@@ -23,10 +23,8 @@ import ctypes
 import torch
 
 from mc_path_tracer_tpu_torch.ops import intersect
-from mc_path_tracer_tpu_torch.ops.kernels import build
+from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES, build, check_rows, launch
 from mc_path_tracer_tpu_torch.ops.math import K_HUGE
-
-LAUNCHES = {"closest": 0, "anyhit": 0, "plain": 0}
 
 # ray x triangle pairs per chunk of the plain versions: bounds their
 # [chunk, T] temporaries (~64 MB each) instead of materializing R x T
@@ -47,32 +45,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(rays: torch.Tensor, nodes: torch.Tensor, geo: torch.Tensor) -> None:
-    for name, x, width in (("rays", rays, 8), ("nodes", nodes, 8), ("geo", geo, 9)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.dim() != 2 or x.shape[1] != width:
-            raise ValueError(f"{name} must be [n, {width}], got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != rays.device:
-            raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
-    if rays.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no traversal for device {rays.device}")
-    if max(rays.shape[0], nodes.shape[0], geo.shape[0]) >= 2**31:
-        raise ValueError("traversal sizes must fit int32")
-
-
-def _launch(fn, counter: str, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed with CUDA error {err}")
-    LAUNCHES[counter] += 1
-
-
 def trace_closest(rays: torch.Tensor, nodes: torch.Tensor, geo: torch.Tensor):
     """Closest hit per ray: (t [R] f32, tri_id [R] int32)."""
-    _check(rays, nodes, geo)
+    check_rows(("rays", rays, 8), ("nodes", nodes, 8), ("geo", geo, 9))
     if rays.device.type == "cpu":
         return closest_plain(rays, geo)
     r = rays.shape[0]
@@ -82,15 +57,15 @@ def trace_closest(rays: torch.Tensor, nodes: torch.Tensor, geo: torch.Tensor):
         lib = _library()
         with torch.cuda.device(rays.device):
             stream = torch.cuda.current_stream().cuda_stream
-            _launch(lib.mcpt_closest, "closest", rays.data_ptr(), r,
-                    nodes.data_ptr(), nodes.shape[0], geo.data_ptr(), geo.shape[0],
-                    t.data_ptr(), tri_id.data_ptr(), stream)
+            launch(lib.mcpt_closest, "closest", rays.data_ptr(), r,
+                   nodes.data_ptr(), nodes.shape[0], geo.data_ptr(), geo.shape[0],
+                   t.data_ptr(), tri_id.data_ptr(), stream)
     return t, tri_id
 
 
 def trace_anyhit(rays: torch.Tensor, nodes: torch.Tensor, geo: torch.Tensor):
     """Occlusion per ray: occ [R] bool (a hit with t <= t_max)."""
-    _check(rays, nodes, geo)
+    check_rows(("rays", rays, 8), ("nodes", nodes, 8), ("geo", geo, 9))
     if rays.device.type == "cpu":
         return anyhit_plain(rays, geo)
     r = rays.shape[0]
@@ -99,9 +74,9 @@ def trace_anyhit(rays: torch.Tensor, nodes: torch.Tensor, geo: torch.Tensor):
         lib = _library()
         with torch.cuda.device(rays.device):
             stream = torch.cuda.current_stream().cuda_stream
-            _launch(lib.mcpt_anyhit, "anyhit", rays.data_ptr(), r,
-                    nodes.data_ptr(), nodes.shape[0], geo.data_ptr(), geo.shape[0],
-                    occ.data_ptr(), stream)
+            launch(lib.mcpt_anyhit, "anyhit", rays.data_ptr(), r,
+                   nodes.data_ptr(), nodes.shape[0], geo.data_ptr(), geo.shape[0],
+                   occ.data_ptr(), stream)
     return occ
 
 

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 K_EPSILON = 1e-6
 K_HUGE = 1e32
 PI = math.pi
@@ -90,7 +92,7 @@ def equirect_dir(uv: torch.Tensor) -> torch.Tensor:
 
 
 def perspective(fovy_rad: float, aspect: float, z_near: float, z_far: float,
-                device=None) -> torch.Tensor:
+                device=DEFAULT_DEVICE) -> torch.Tensor:
     """glm::perspective (right-handed, NDC z in [-1, 1])."""
     f = 1.0 / torch.tan(torch.tensor(fovy_rad / 2.0, dtype=torch.float32))
     m = torch.zeros((4, 4), dtype=torch.float32)
@@ -99,10 +101,10 @@ def perspective(fovy_rad: float, aspect: float, z_near: float, z_far: float,
     m[2, 2] = (z_far + z_near) / (z_near - z_far)
     m[2, 3] = 2.0 * z_far * z_near / (z_near - z_far)
     m[3, 2] = -1.0
-    return m.to(device)
+    return m.to(resolve_device(device))
 
 
-def look_at(eye, center, up, device=None) -> torch.Tensor:
+def look_at(eye, center, up, device=DEFAULT_DEVICE) -> torch.Tensor:
     """glm::lookAt equivalent (view matrix, right-handed)."""
     eye = torch.as_tensor(eye, dtype=torch.float32)
     f = normalize(torch.as_tensor(center, dtype=torch.float32) - eye)
@@ -115,4 +117,4 @@ def look_at(eye, center, up, device=None) -> torch.Tensor:
     m[0, 3] = -torch.dot(s, eye)
     m[1, 3] = -torch.dot(u, eye)
     m[2, 3] = torch.dot(f, eye)
-    return m.to(device)
+    return m.to(resolve_device(device))

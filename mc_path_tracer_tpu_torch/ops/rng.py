@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -71,10 +73,10 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+def uniform(key: torch.Tensor, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
     """`jax.random.uniform(key, (n,))` in f32."""
     k1, k2 = _words(key)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    lo = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return _bits_to_unit(b1 ^ b2)
 

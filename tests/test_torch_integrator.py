@@ -33,7 +33,7 @@ def render_both(spp=SPP, depth=DEPTH, **cfg):
                       key=jax.random.PRNGKey(SEED))
     out = tint.render(small_scene(TScene), TCam(**CAM), W, H,
                       tint.RenderConfig(spp=spp, max_depth=depth, **cfg),
-                      key=trng.prng_key(SEED))
+                      key=trng.prng_key(SEED), device="cpu")
     return out, ref
 
 
@@ -82,4 +82,5 @@ def test_render_reference_quirks_matches_jax():
 ])
 def test_unported_options_are_refused(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tint.render(small_scene(TScene), TCam(**CAM), 4, 4, tint.RenderConfig(spp=1, **cfg))
+        tint.render(small_scene(TScene), TCam(**CAM), 4, 4, tint.RenderConfig(spp=1, **cfg),
+                    device="cpu")

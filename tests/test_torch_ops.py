@@ -101,10 +101,10 @@ def test_math_equirect_dir():
 
 
 def test_math_matrices():
-    assert_close(tmath.perspective(0.8, 1.7, 0.1, 1000.0),
+    assert_close(tmath.perspective(0.8, 1.7, 0.1, 1000.0, device="cpu"),
                  jmath.perspective(0.8, 1.7, 0.1, 1000.0))
     eye, center, up = [0.3, 4.0, 9.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0]
-    m_t = tmath.look_at(eye, center, up)
+    m_t = tmath.look_at(eye, center, up, device="cpu")
     m_j = jmath.look_at(jnp.asarray(eye), jnp.asarray(center), jnp.asarray(up))
     assert_close(m_t, m_j)
 
@@ -210,7 +210,7 @@ def test_material_table():
     args = (r.random((m, 3)), r.uniform(0.05, 1.0, m), r.random(m),
             r.uniform(0.02, 0.9, (m, 3)), r.random((m, 3)) * 4)
     jt = jmat.make_material_table(*args)
-    tt = tmat.make_material_table(*args)
+    tt = tmat.make_material_table(*args, device="cpu")
     for a, b in zip(tt, jt):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     (jid, jn), (tid, tn) = both(r.integers(0, m, N).astype(np.int32), unit(r))
@@ -235,7 +235,7 @@ def _env_tex(h=16, w=32, seed=14):
 def test_envmap_distribution_and_sampling(h, w):
     """(4, 1100) takes the two-level column search."""
     tex = _env_tex(h, w)
-    jd, td = jenv.build_distribution(tex), tenv.build_distribution(tex)
+    jd, td = jenv.build_distribution(tex), tenv.build_distribution(tex, "cpu")
     for a, b in zip(td, jd):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     j, t = both(uniforms(rng(15)))
@@ -249,7 +249,7 @@ def test_envmap_distribution_and_sampling(h, w):
 def test_envmap_two_level_row_search():
     """A marginal CDF above _FLAT_SEARCH_MAX rows takes the two-level search."""
     tex = _env_tex(1100, 4)
-    jd, td = jenv.build_distribution(tex), tenv.build_distribution(tex)
+    jd, td = jenv.build_distribution(tex), tenv.build_distribution(tex, "cpu")
     j, t = both(uniforms(rng(16)))
     np.testing.assert_array_equal(tenv.sample_direction(td, t[0])[1].numpy(),
                                   np.asarray(jenv.sample_direction(jd, j[0])[1]))
@@ -257,7 +257,7 @@ def test_envmap_two_level_row_search():
 
 def test_envmap_pdf_radiance_packed():
     tex = _env_tex()
-    jd, td = jenv.build_distribution(tex), tenv.build_distribution(tex)
+    jd, td = jenv.build_distribution(tex), tenv.build_distribution(tex, "cpu")
     (jt, jwi), (tt, twi) = both(tex, unit(rng(17)))
     assert_close(tenv.pdf(td, twi), jenv.pdf(jd, jwi))
     assert_close(tenv.radiance(tt, twi), jenv.radiance(jt, jwi))
@@ -279,7 +279,7 @@ def test_camera_rays(lens_radius):
     kw = dict(position=np.array([0.3, 4.0, 9.0]), target=np.array([0.0, 0.5, 0.0]),
               fov_deg=45.0, aspect=24 / 16, lens_radius=lens_radius, focal_distance=8.0)
     jp = jcam.PerspectiveCamera(**kw).params()
-    tp = tcam.PerspectiveCamera(**kw).params()
+    tp = tcam.PerspectiveCamera(**kw).params("cpu")
     for a, b in zip(tp, jp):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     r = rng(19)
@@ -321,13 +321,14 @@ def _light_sets(hdri: bool):
     cols = np.array([[1.0, 0.95, 0.8], [0.2, 0.3, 1.0]], np.float32)
     ls = np.array([3.0, 1.5], np.float32)
     if hdri:
-        je, te = jlights.make_env_hdri(tex), tlights.make_env_hdri(tex)
+        je, te = jlights.make_env_hdri(tex), tlights.make_env_hdri(tex, device="cpu")
     else:
         je = jlights.make_env_color((0.4, 0.5, 0.7), 2.0)
-        te = tlights.make_env_color((0.4, 0.5, 0.7), 2.0)
+        te = tlights.make_env_color((0.4, 0.5, 0.7), 2.0, device="cpu")
     jl = jlights.LightSet(env=je, directional=jlights.make_directional(dirs, cols, ls),
                           area=jlights.empty_area())
-    tl = tlights.LightSet(env=te, directional=tlights.make_directional(dirs, cols, ls))
+    tl = tlights.LightSet(env=te, directional=tlights.make_directional(dirs, cols, ls, "cpu"),
+                          area=tlights.empty_area("cpu"))
     return jlights.with_packed(jl), tlights.with_packed(tl)
 
 

@@ -1,8 +1,9 @@
 """The port's Scene.build() against the JAX Scene.build() on the same calls:
 the leaf-order triangles and packed shading rows, the BVH node table, the
-material table, the environment CDFs and the directional lights must be
-equal, not close (both run the same host numpy and native builder).
-scene_data_from_arrays must reproduce the JAX arrays it is given."""
+material table, the environment CDFs, the directional lights and the area
+light must be equal, not close (both run the same host numpy and the same
+native builder source with the same flags).  scene_data_from_arrays must
+reproduce the JAX arrays it is given."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 from mc_path_tracer_tpu.models import primitives as jprim
 from mc_path_tracer_tpu.models.primitives import plane, uv_sphere
 from mc_path_tracer_tpu.models.scene import Scene as JScene
+from mc_path_tracer_tpu_torch.models import lights as tlights
 from mc_path_tracer_tpu_torch.models import primitives as tprim
 from mc_path_tracer_tpu_torch.models.scene import (
     Scene as TScene,
@@ -38,7 +40,7 @@ def small_scene(scene_cls, roughness=0.3):
 
 @pytest.fixture(scope="module")
 def built():
-    return small_scene(JScene).build(), small_scene(TScene).build()
+    return small_scene(JScene).build(), small_scene(TScene).build("cpu")
 
 
 @pytest.mark.parametrize("name, kwargs", [
@@ -46,6 +48,8 @@ def built():
     ("uv_sphere", dict(radius=0.8, center=(0, 0.8, 0), rings=8, segments=12)),
     ("plane", dict(size=40.0)),
     ("plane", dict(size=2.0, center=(0, 3, 1), normal_axis="z")),
+    ("box", dict(size=(1.2, 1.2, 1.2), center=(-1.0, 0.6, 0.0))),
+    ("box", dict()),
 ])
 def test_primitives_equal_jax(name, kwargs):
     """The port's primitives give the JAX package's arrays exactly."""
@@ -75,21 +79,38 @@ def test_scene_build_equals_jax(built):
 def test_scene_data_from_arrays_reproduces_jax(built):
     jsd, _ = built
     ja = scene_arrays(jsd)
-    sd = scene_data_from_arrays(ja)
+    sd = scene_data_from_arrays(ja, device="cpu")
     _compare(scene_arrays(sd), ja,
              ("tris.", "bvh.", "materials.", "lights.env.", "lights.directional."))
     assert sd.tris.geo.is_contiguous() and sd.tris.geo.dtype == torch.float32
 
 
-def test_unported_scene_features_are_refused(built):
-    s = small_scene(TScene)
-    s.add_material(emissive=(5.0, 5.0, 5.0))
-    s.build()  # an unused emissive material is fine
+def with_emitter(scene_cls):
+    """small_scene plus an unused emissive material and a 1 m emissive quad
+    facing down at y = 3 (its two triangles become the area light)."""
+    s = small_scene(scene_cls)
+    s.add_material(emissive=(9.0, 9.0, 9.0))
+    em = s.add_material(emissive=(5.0, 4.0, 3.0))
     p, n, uv, idx = plane(1.0, center=(0, 3, 0))
-    s.add_mesh(p, idx, normals=n, uvs=uv, material_id=len(s.material_albedo) - 1)
-    with pytest.raises(NotImplementedError, match="area lights"):
-        s.build()
+    s.add_mesh(p, idx[:, ::-1].copy(), normals=-n, uvs=uv, material_id=em)
+    return s
+
+
+def test_emissive_mesh_builds_the_area_light():
+    """Emissive triangles become the area light after the BVH reorder, with
+    the JAX build's leaf-order ids, emission, areas and CDF."""
+    jsd, tsd = with_emitter(JScene).build(), with_emitter(TScene).build("cpu")
+    assert tsd.lights.area.count == jsd.lights.area.count == 2
+    assert tlights.area_light_id(tsd.lights) == 2 and tlights.num_lights(tsd.lights) == 3
+    ja, ta = scene_arrays(jsd), scene_arrays(tsd)
+    _compare(ta, ja, ("tris.", "bvh.", "lights.area."))
+    np.testing.assert_allclose(ta["lights.area.total_area"], 1.0, rtol=1e-6)
+    # scenes without emitters carry an empty area light
+    assert small_scene(TScene).build("cpu").lights.area.count == 0
+
+
+def test_unported_scene_features_are_refused(built):
     ja = scene_arrays(built[0])
     ja["materials.albedo_tex"] = np.zeros_like(ja["materials.albedo_tex"])
     with pytest.raises(NotImplementedError, match="textures"):
-        scene_data_from_arrays(ja)
+        scene_data_from_arrays(ja, device="cpu")

@@ -76,7 +76,7 @@ def scene():
         jisect.TriangleSoA(**{k: jnp.asarray(v) for k, v in arrays.items()}),
         max_leaf=4,
     )
-    tb, ttris, _ = tbvh.build_bvh(arrays, max_leaf=4)
+    tb, ttris, _ = tbvh.build_bvh(arrays, max_leaf=4, device="cpu")
     return (jb, jtris), tb, ttris
 
 
@@ -181,10 +181,11 @@ def test_wrapper_rejects_bad_rays(scene, fn, bad):
         fn(rays, tb.packed, ttris.geo)
 
 
-def test_nvcc_command_line():
-    """The build targets sm_90a with --fmad=false into the gitignored
+@pytest.mark.parametrize("name", ["traversal", "dense", "tonemap"])
+def test_nvcc_command_line(name):
+    """Each kernel builds for sm_90a with --fmad=false into the gitignored
     build directory; checked as a list, without running nvcc."""
-    src = build.CSRC_DIR / "traversal.cu"
+    src = build.CSRC_DIR / f"{name}.cu"
     out = build.library_path(src)
     cmd = build.nvcc_command(src, out)
     assert cmd[0] == "nvcc"
@@ -195,4 +196,4 @@ def test_nvcc_command_line():
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
     # a changed source builds under another name
-    assert out.name.startswith("libtraversal_") and out.suffix == ".so"
+    assert out.name.startswith(f"lib{name}_") and out.suffix == ".so"
