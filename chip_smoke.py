@@ -8,8 +8,9 @@ PyTorch version on the card:
 
   [scene] [kernel]  the bench scene (48,002 triangles); the traversal
                     kernel against its plain version on mixed rays and at
-                    the bench frame's dispatch shapes, with a counting pass
-                    of the nodes and triangles those rays need
+                    the bench frame's dispatch shapes, with counting passes
+                    of the work those rays need: the binary walk's (the
+                    bound) and the 4-wide walk's the kernel does
   [render]          bench path: 1920x1080, 4 spp, depth 5, through the
                     traversal kernel
   [parity]          kernel route against plain route on a 64x64 crop
@@ -24,13 +25,21 @@ PyTorch version on the card:
                     scene under "auto" takes the dense kernel
   [stream]          the traversal kernel on 1,003,520 triangles (the TPU
                     streaming kernel's contract) against plain
+  [device-time]     the kernels' device time at the shapes above, under
+                    torch.profiler, after every frame has run
   [imports]         no module of JAX or of the JAX package was loaded
 
 Needs a CUDA GPU and nvcc; fails (non-zero exit, no result line) without
-them and on any fault.  Prints one line per phase, then a JSON line of the
+them and on any fault.  Every kernel must agree with its plain version on
+every live lane.  Prints one line per phase, then a JSON line of the
 kernels (launches on the main paths, error against the plain version,
 times at the main paths' shapes beside the least time the card could take),
 the card's name and power limit, and last {"ok": true, "device": {...}}.
+Kernel times are given twice: "ms" is the CUDA-event mean over
+back-to-back calls of the wrapper (host enqueue included where it is the
+slower side), "device_ms" the device time of those calls by torch.profiler
+(kernels and memsets, summed, per call), taken last so that no frame runs
+after the profiler.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 5
 RAYS_PER_SAMPLE = 1 + (DEPTH - 2) + 2 * (DEPTH - 1)   # bench.py's 12
@@ -69,11 +79,16 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
 # least-time model: published H100 SXM peaks (fp32 outside the tensor
 # cores, HBM3), and the fp32 operations (add, sub, mul, div, min, max;
 # compares not counted) of one box test and one Moller-Trumbore test as
-# csrc/traversal.cu and csrc/mt.cuh write them
+# csrc/traversal.cu and csrc/mt.cuh write them.  A triangle test costs what
+# its exit path costs: 14 to mt.cuh's det split (pvec, det), 24 to its u
+# exit (tvec, the u numerator, the two products of its bounds), 46 in full
+# as the reference writes it.  `full_test_bound_ms` charges 46 to every
+# test, as the first kernels' rows did.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SLAB_FLOPS = 22
 MT_FLOPS = 46
+MT_EXIT_FLOPS = (14, 24, MT_FLOPS)
 
 
 def log(msg: str) -> None:
@@ -217,8 +232,37 @@ def _time_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def phase_device_times(later: list, name_limit) -> None:
+    """The device times the kernel phases asked for, (label, fn, reps, stats
+    dict, key) each, taken after every frame: each goes into its dict."""
+    for label, fn, reps, out, key in later:
+        out[key] = _device_ms(fn, reps)
+        log(f"[device-time] {label}: {out[key]:.4f} ms per call, {reps} calls ({name_limit})")
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time per call of `fn` under torch.profiler (the sum of the
+    self device time of every kernel and memset it ran), after one warm-up
+    call: the kernel's own time, without the host work of the wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    # a profiler session now and then records no device activity at all
+    # (seen once in ~20 runs, on the first session): try up to three
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(max(getattr(e, "self_device_time_total", 0.0), 0.0)
+                 for e in prof.key_averages())
+        if us > 0.0:
+            return us / 1e3 / reps
+        log(f"[device-time] torch.profiler saw no device time (attempt {attempt + 1} of 3)")
+    raise AssertionError("torch.profiler saw no device time")
+
+
 def _check_closest(label, rays, kernel, plain):
-    """tri_id agreement on live lanes >= 0.999, t rel <= 1e-5 where the ids
+    """tri_id agreement on every live lane, t rel <= 1e-5 where the ids
     agree, dead lanes miss; returns the max abs t error."""
     (t_k, id_k), (t_p, id_p) = kernel, plain
     live = rays[:, 6] > 0.5
@@ -232,13 +276,13 @@ def _check_closest(label, rays, kernel, plain):
     hit_frac = (id_p[live] >= 0).float().mean().item()
     log(f"[kernel] {label}: closest tri_id agreement {id_agree:.6f} of {int(live.sum())} "
         f"live lanes ({hit_frac:.3f} hit), t max rel {t_rel:.3e}, dead lanes miss: {dead_ok}")
-    if id_agree < 0.999 or t_rel > 1e-5 or not dead_ok:
+    if id_agree < 1.0 or t_rel > 1e-5 or not dead_ok:
         raise AssertionError(f"closest kernel disagrees with its plain version ({label})")
     return t_err.max().item() if both.any() else 0.0
 
 
 def _check_anyhit(label, rays, occ_k, occ_p):
-    """Occlusion agreement on live lanes >= 0.999, dead lanes unoccluded;
+    """Occlusion agreement on every live lane, dead lanes unoccluded;
     returns the max abs difference (0 or 1)."""
     live = rays[:, 6] > 0.5
     if not live.any():
@@ -248,17 +292,19 @@ def _check_anyhit(label, rays, occ_k, occ_p):
     occ_frac = occ_p[live].float().mean().item()
     log(f"[kernel] {label}: any-hit agreement {agree:.6f} of {int(live.sum())} live lanes "
         f"({occ_frac:.3f} occluded), dead lanes miss: {dead_ok}")
-    if agree < 0.999 or not dead_ok:
+    if agree < 1.0 or not dead_ok:
         raise AssertionError(f"any-hit kernel disagrees with its plain version ({label})")
     return (occ_k[live].float() - occ_p[live].float()).abs().max().item()
 
 
-def walk_counts(rays, nodes, geo, any_hit: bool) -> tuple[int, int]:
-    """(nodes visited, triangles tested) summed over the live rays: the
-    skip-link walk of csrc/traversal.cu replayed with torch in the kernel's
-    order and arithmetic (boxes pruned against the best t, leaves tested in
-    index order, any-hit stopping at its first hit within t_max)."""
-    from mc_path_tracer_tpu_torch.ops.intersect import moller_trumbore
+def walk_counts(rays, nodes, geo, any_hit: bool) -> tuple[int, int, int]:
+    """(nodes visited, triangles tested, the tests' flops by exit path)
+    summed over the live rays: the binary skip-link walk of the first
+    traversal kernel replayed with torch in its order and arithmetic (boxes
+    pruned against the best t, leaves tested in index order, any-hit
+    stopping at its first hit within t_max).  The bound keeps this count,
+    so kernel rows stay comparable across designs."""
+    from mc_path_tracer_tpu_torch.ops.intersect import early_exits, moller_trumbore
     from mc_path_tracer_tpu_torch.ops.math import K_HUGE
 
     n = nodes.shape[0]
@@ -271,7 +317,7 @@ def walk_counts(rays, nodes, geo, any_hit: bool) -> tuple[int, int]:
     inv = 1.0 / g
     idx = torch.zeros(o.shape[0], dtype=torch.long, device=rays.device)
     t_best = torch.full((o.shape[0],), K_HUGE, device=rays.device)
-    visits = tests = 0
+    visits = tests = flops = 0
     while idx.numel():
         visits += idx.numel()
         box = nodes[idx]
@@ -286,7 +332,9 @@ def walk_counts(rays, nodes, geo, any_hit: bool) -> tuple[int, int]:
             m = (k < c) & ~done
             tests += int(m.sum().item())
             row = geo[torch.where(m, first[idx] + k, 0)]
-            valid, t, _, _ = moller_trumbore(o, d, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+            tri = (o, d, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+            valid, t, _, _ = moller_trumbore(*tri)
+            flops += _exit_flops(*early_exits(*tri)[:2], m)
             if any_hit:
                 done = done | (m & valid & (t <= t_max))
             else:
@@ -294,19 +342,42 @@ def walk_counts(rays, nodes, geo, any_hit: bool) -> tuple[int, int]:
         nxt = torch.where(hit_box & (count[idx] == 0), idx + 1, skip[idx])
         keep = (nxt < n) & ~done
         idx, o, d, inv, t_max, t_best = (x[keep] for x in (nxt, o, d, inv, t_max, t_best))
-    return visits, tests
+    return visits, tests, flops
 
 
-def phase_kernel_check(sd, device, name_limit):
+def _exit_flops(det_exit, u_exit, tested) -> int:
+    """The flops of the `tested` triangle tests by the path each leaves
+    mt.cuh's test on."""
+    paths = (det_exit & tested, u_exit & tested, ~det_exit & ~u_exit & tested)
+    return sum(f * int(m.sum().item()) for f, m in zip(MT_EXIT_FLOPS, paths))
+
+
+def wide_walk(label, rays, sd, any_hit: bool, kernel_out) -> dict:
+    """The 4-wide walk's counts (ops/kernels/traversal.walk_plain, the
+    kernel's walk replayed with torch); fails unless the replay gives the
+    kernel's answer on every lane."""
+    from mc_path_tracer_tpu_torch.ops.kernels import traversal
+
+    out, stats = traversal.walk_plain(rays, sd.bvh, sd.tris.geo, any_hit=any_hit)
+    same = (torch.equal(out, kernel_out) if any_hit
+            else torch.equal(out[1], kernel_out[1]) and torch.equal(out[0], kernel_out[0]))
+    log(f"[kernel] {label}: 4-wide walk (depth {sd.bvh.wide_depth}, {sd.bvh.wide.shape[0]} "
+        f"wide nodes): {stats}, replay equals kernel: {same}")
+    if not same:
+        raise AssertionError(f"the torch replay of the walk differs from the kernel ({label})")
+    return stats
+
+
+def phase_kernel_check(sd, device, later: list, name_limit):
     """The traversal kernel against its plain version on the same rays: a
     mixed set with masked lanes and bounded t_max, then the bench frame's
-    dispatch shapes, timed, with the counting pass for the bound."""
+    dispatch shapes, timed, with the counting passes for the bound."""
     from mc_path_tracer_tpu_torch.models.film import tile_order
     from mc_path_tracer_tpu_torch.ops import intersect
     from mc_path_tracer_tpu_torch.ops.kernels import traversal
 
     gen = torch.Generator(device=device).manual_seed(0)
-    nodes, geo = sd.bvh.packed, sd.tris.geo
+    bvh, geo = sd.bvh, sd.tris.geo
     cam = bench_camera()
 
     # 16,384 camera rays at random pixels + 16,384 bounce rays from their hits
@@ -323,12 +394,14 @@ def phase_kernel_check(sd, device, name_limit):
         bounded, torch.rand(ro.shape[0], generator=gen, device=device) * 5.0, 1e32)
     rays = intersect.pack_rays(ro, rd, live, t_max)
     label = f"{2 * CHECK_RAYS} mixed rays"
+    closest = traversal.trace_closest(rays, bvh, geo)
+    occ = traversal.trace_anyhit(rays, bvh, geo)
     errs = {
-        "closest": [_check_closest(label, rays, traversal.trace_closest(rays, nodes, geo),
-                                   traversal.closest_plain(rays, geo))],
-        "anyhit": [_check_anyhit(label, rays, traversal.trace_anyhit(rays, nodes, geo),
-                                 traversal.anyhit_plain(rays, geo))],
+        "closest": [_check_closest(label, rays, closest, traversal.closest_plain(rays, geo))],
+        "anyhit": [_check_anyhit(label, rays, occ, traversal.anyhit_plain(rays, geo))],
     }
+    wide_walk(label, rays, sd, False, closest)
+    wide_walk(label, rays, sd, True, occ)
 
     # the main path's shapes: one tile-order block of camera rays, its
     # first-bounce extension rays (closest, 65,536 rays), and its shadow
@@ -354,17 +427,24 @@ def phase_kernel_check(sd, device, name_limit):
         ("anyhit", anyhit_rays, traversal.trace_anyhit, traversal.anyhit_plain,
          _check_anyhit, 1),
     ):
-        k_ms, k_out = _time_ms(lambda: fn(rays, nodes, geo), 20)
+        k_ms, k_out = _time_ms(lambda: fn(rays, bvh, geo), 20)
         p_ms, p_out = _time_ms(lambda: plain(rays, geo), 2)
-        errs[name].append(check(f"{rays.shape[0]} path rays", rays, k_out, p_out))
-        visits, tests = walk_counts(rays, nodes, geo, any_hit=name == "anyhit")
-        nbytes = (rays.numel() + nodes.numel() + geo.numel()) * 4 + rays.shape[0] * out_bytes
-        b_ms, b_by = bound(nbytes, visits * SLAB_FLOPS + tests * MT_FLOPS)
-        log(f"[kernel] {name} {rays.shape[0]} rays: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by}: {visits} node visits, {tests} triangle tests, "
-            f"{nbytes} bytes) ({name_limit})")
+        label = f"{rays.shape[0]} path rays"
+        errs[name].append(check(label, rays, k_out, p_out))
+        visits, tests, tri_flops = walk_counts(rays, sd.bvh.packed, geo, name == "anyhit")
+        wide_walk(label, rays, sd, name == "anyhit", k_out)
+        nbytes = ((rays.numel() + sd.bvh.packed.numel() + geo.numel()) * 4
+                  + rays.shape[0] * out_bytes)
+        b_ms, b_by = bound(nbytes, visits * SLAB_FLOPS + tri_flops)
+        full_ms, _ = bound(nbytes, visits * SLAB_FLOPS + tests * MT_FLOPS)
+        log(f"[kernel] {name} {rays.shape[0]} rays: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}: binary walk {visits} node visits, {tests} triangle "
+            f"tests of {tri_flops} flops, {nbytes} bytes; {full_ms:.5f} ms with every test "
+            f"in full) ({name_limit})")
         out[name] = dict(max_abs_err=max(errs[name]), ms=k_ms, plain_ms=p_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, full_test_bound_ms=full_ms)
+        later.append((f"{name} {label}", lambda f=fn, r=rays: f(r, bvh, geo), 20,
+                      out[name], "device_ms"))
     return out
 
 
@@ -434,7 +514,7 @@ def phase_route_parity(sd, device):
         raise AssertionError("kernel route and plain route disagree")
 
 
-def phase_tonemap(film, name_limit):
+def phase_tonemap(film, later: list, name_limit):
     """The tone-map kernel against its plain version on the bench frame's
     film: bit equality required."""
     from mc_path_tracer_tpu_torch.ops.kernels import tonemap
@@ -451,7 +531,10 @@ def phase_tonemap(film, name_limit):
         f"{b_ms:.5f} ms ({b_by}: {nbytes} bytes), bit-equal {equal} ({name_limit})")
     if not equal:
         raise AssertionError(f"tone-map kernel differs from plain (max {diff})")
-    return dict(max_abs_err=float(diff), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    out = dict(max_abs_err=float(diff), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    later.append((f"tonemap {w}x{h}", lambda: tonemap.tonemap(ld, samples, 1.0), 50, out,
+                  "device_ms"))
+    return out
 
 
 def config2_scene(device):
@@ -481,7 +564,31 @@ def _first_occluder(rays, geo):
     return first
 
 
-def phase_dense(sd, cam, device, name_limit):
+def _mt_paths(rays, geo, last=None) -> tuple[int, int, int]:
+    """How the (live ray, triangle) tests leave csrc/mt.cuh's test:
+    (stopped at the det test, stopped at the u numerator, run in full),
+    over every triangle, or over triangles 0..last[i] of live ray i."""
+    from mc_path_tracer_tpu_torch.ops.intersect import early_exits
+    from mc_path_tracer_tpu_torch.ops.kernels.traversal import PLAIN_PAIRS
+
+    live = rays[rays[:, 6] > 0.5]
+    if last is None:
+        last = torch.full((live.shape[0],), geo.shape[0] - 1, device=rays.device)
+    ids = torch.arange(geo.shape[0], device=rays.device)
+    culled = rejected = total = 0
+    step = max(1, PLAIN_PAIRS // geo.shape[0])
+    v0, e1, e2 = geo[None, :, 0:3], geo[None, :, 3:6], geo[None, :, 6:9]
+    for s in range(0, live.shape[0], step):
+        c = live[s : s + step]
+        tested = ids[None, :] <= last[s : s + step, None]
+        det_exit, u_exit, _, _, _ = early_exits(c[:, None, 0:3], c[:, None, 3:6], v0, e1, e2)
+        culled += int((det_exit & tested).sum().item())
+        rejected += int((u_exit & tested).sum().item())
+        total += int(tested.sum().item())
+    return culled, rejected, total - culled - rejected
+
+
+def phase_dense(sd, cam, device, later: list, name_limit):
     """The dense kernel against its plain version at config2's path shapes:
     the 65,536 camera rays of the frame and 65,536 bounded shadow rays from
     their hits toward points sampled on the quad (t_max short of the point,
@@ -494,7 +601,7 @@ def phase_dense(sd, cam, device, name_limit):
     from mc_path_tracer_tpu_torch.ops.kernels import dense, traversal
 
     gen = torch.Generator(device=device).manual_seed(1)
-    geo, nodes = sd.tris.geo, sd.bvh.packed
+    geo, bvh = sd.tris.geo, sd.bvh
     pxi, pyi = tile_order(AREA_SIZE, AREA_SIZE)
     px = torch.from_numpy(pxi.astype(np.float32)).to(device)
     py = torch.from_numpy(pyi.astype(np.float32)).to(device)
@@ -511,9 +618,9 @@ def phase_dense(sd, cam, device, name_limit):
     out = {}
     for name, rays, fn, plain, check, trav in (
         ("dense_closest", camera_rays, dense.dense_closest, traversal.closest_plain,
-         _check_closest, lambda r: traversal.trace_closest(r, nodes, geo)),
+         _check_closest, lambda r: traversal.trace_closest(r, bvh, geo)),
         ("dense_anyhit", shadow_rays, dense.dense_anyhit, traversal.anyhit_plain,
-         _check_anyhit, lambda r: traversal.trace_anyhit(r, nodes, geo)),
+         _check_anyhit, lambda r: traversal.trace_anyhit(r, bvh, geo)),
     ):
         k_ms, k_out = _time_ms(lambda: fn(rays, geo), 20)
         p_ms, p_out = _time_ms(lambda: plain(rays, geo), 2)
@@ -521,20 +628,34 @@ def phase_dense(sd, cam, device, name_limit):
         label = f"{rays.shape[0]} config2 rays"
         err = check(label + " (dense)", rays, k_out, p_out)
         check(label + " (traversal)", rays, t_out, p_out)
-        live = rays[:, 6] > 0.5
+        wide_walk(label + " (traversal)", rays, sd, name == "dense_anyhit", t_out)
+        # closest hits test every triangle; index-order any-hit stops at
+        # the first occluder
         if name == "dense_closest":
-            tests = int(live.sum().item()) * n_tris
-            nbytes = (rays.numel() + geo.numel()) * 4 + rays.shape[0] * 8
+            last, out_bytes = None, 8
         else:
-            first = _first_occluder(rays, geo)[live]
-            tests = int(torch.where(first >= 0, first + 1, n_tris).sum().item())
-            nbytes = (rays.numel() + geo.numel()) * 4 + rays.shape[0]
-        b_ms, b_by = bound(nbytes, tests * MT_FLOPS)
+            first = _first_occluder(rays, geo)[rays[:, 6] > 0.5]
+            last, out_bytes = torch.where(first >= 0, first, n_tris - 1), 1
+        paths = _mt_paths(rays, geo, last)
+        tests = sum(paths)
+        flops = sum(f * n for f, n in zip(MT_EXIT_FLOPS, paths))
+        nbytes = (rays.numel() + geo.numel()) * 4 + rays.shape[0] * out_bytes
+        b_ms, b_by = bound(nbytes, flops)
+        full_ms, _ = bound(nbytes, tests * MT_FLOPS)
+        # without FMA pairing each operation issues alone: half the peak rate
+        ceiling_ms = 2 * flops / PEAK_FLOPS * 1e3
+        log(f"[dense] {label}: of {tests} triangle tests {paths[0]} stop at the det test, "
+            f"{paths[1]} at the u numerator, {paths[2]} run in full: {flops} flops")
         log(f"[dense] {name} {rays.shape[0]} rays x {n_tris} triangles: kernel {k_ms:.4f} ms, "
             f"traversal kernel {t_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms "
-            f"({b_by}: {tests} triangle tests x {MT_FLOPS} flops) ({name_limit})")
-        out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by=b_by, traversal_ms=t_ms)
+            f"({b_by}: {flops} flops by exit path; non-FMA ceiling {ceiling_ms:.5f} ms; "
+            f"{full_ms:.5f} ms with every test in full) ({name_limit})")
+        out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         full_test_bound_ms=full_ms)
+        later.append((f"{name} {label}", lambda f=fn, r=rays: f(r, geo), 20, out[name],
+                      "device_ms"))
+        later.append((f"{name} {label}, traversal kernel", lambda f=trav, r=rays: f(r), 20,
+                      out[name], "traversal_device_ms"))
     return out
 
 
@@ -613,7 +734,7 @@ def phase_area_scene(device):
         raise AssertionError(f"the area scene did not take the dense kernel alone: {got}")
 
 
-def phase_stream(device, name_limit):
+def phase_stream(device, later: list, name_limit):
     """The traversal kernel at the size the TPU's streaming kernel exists
     for: tests_tpu.py's ten 224x224 UV spheres (1,003,520 triangles) built
     through the port's Scene, 2,048 random rays, against plain."""
@@ -636,21 +757,26 @@ def phase_stream(device, name_limit):
     rd = torch.from_numpy(rng.normal(size=(STREAM_RAYS, 3)).astype(np.float32)).to(device)
     rd = rd / rd.norm(dim=-1, keepdim=True)
     rays = intersect.pack_rays(ro, rd)
-    nodes, geo = sd.bvh.packed, sd.tris.geo
+    bvh, geo = sd.bvh, sd.tris.geo
     for name, fn, plain, check, out_bytes in (
         ("closest", traversal.trace_closest, traversal.closest_plain, _check_closest, 8),
         ("anyhit", traversal.trace_anyhit, traversal.anyhit_plain, _check_anyhit, 1),
     ):
-        k_ms, k_out = _time_ms(lambda: fn(rays, nodes, geo), 20)
+        k_ms, k_out = _time_ms(lambda: fn(rays, bvh, geo), 20)
         p_ms, p_out = _time_ms(lambda: plain(rays, geo), 1)
-        check(f"{STREAM_RAYS} rays, {geo.shape[0]} triangles", rays, k_out, p_out)
-        visits, tests = walk_counts(rays, nodes, geo, any_hit=name == "anyhit")
-        nbytes = (rays.numel() + nodes.numel() + geo.numel()) * 4 + rays.shape[0] * out_bytes
-        b_ms, b_by = bound(nbytes, visits * SLAB_FLOPS + tests * MT_FLOPS)
+        label = f"{STREAM_RAYS} rays, {geo.shape[0]} triangles"
+        check(label, rays, k_out, p_out)
+        visits, tests, tri_flops = walk_counts(rays, sd.bvh.packed, geo, name == "anyhit")
+        wide_walk(label, rays, sd, name == "anyhit", k_out)
+        nbytes = ((rays.numel() + sd.bvh.packed.numel() + geo.numel()) * 4
+                  + rays.shape[0] * out_bytes)
+        b_ms, b_by = bound(nbytes, visits * SLAB_FLOPS + tri_flops)
         log(f"[stream] {name} {STREAM_RAYS} rays x {geo.shape[0]} triangles "
             f"({sd.bvh.num_nodes} nodes): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by}: {visits} node visits, {tests} triangle tests, "
-            f"{nbytes} bytes) ({name_limit})")
+            f"bound {b_ms:.5f} ms ({b_by}: binary walk {visits} node visits, {tests} "
+            f"triangle tests of {tri_flops} flops, {nbytes} bytes) ({name_limit})")
+        later.append((f"stream {name} {label}", lambda f=fn: f(rays, bvh, geo), 20,
+                      {}, "device_ms"))
 
 
 def phase_imports():
@@ -673,16 +799,18 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     sd = phase_scene(device)
-    stats = phase_kernel_check(sd, device, name_limit)
+    later = []   # device timings, taken after the frames
+    stats = phase_kernel_check(sd, device, later, name_limit)
     bench_launches, film = phase_render(sd, device, name_limit)
     phase_route_parity(sd, device)
-    stats["tonemap"] = phase_tonemap(film, name_limit)
+    stats["tonemap"] = phase_tonemap(film, later, name_limit)
     del sd, film
     sd2, cam2, cfg2 = config2_scene(device)
-    stats.update(phase_dense(sd2, cam2, device, name_limit))
+    stats.update(phase_dense(sd2, cam2, device, later, name_limit))
     area_launches = phase_area(sd2, cam2, cfg2, device, png, name_limit)
     phase_area_scene(device)
-    phase_stream(device, name_limit)
+    phase_stream(device, later, name_limit)
+    phase_device_times(later, name_limit)
     phase_imports()
     launches = {"closest": bench_launches["closest"], "anyhit": bench_launches["anyhit"],
                 "dense_closest": area_launches["dense"]["dense_closest"],
@@ -691,8 +819,10 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "ms": stats[name]["ms"], "device_ms": stats[name]["device_ms"],
+         "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"], "bound_by": stats[name]["bound_by"],
+         "full_test_bound_ms": stats[name].get("full_test_bound_ms", stats[name]["bound_ms"]),
          "library_ms": None}
         for name, (source, replaces) in KERNELS.items()
     ]

@@ -7,7 +7,8 @@
 // includes this file is built with --fmad=false, so a test rounds exactly
 // as the plain PyTorch version (ops/intersect.moller_trumbore) does on the
 // card.  Contract: backface culling (det >= K_EPSILON), 0 <= u, v, u+v <= 1,
-// t >= 0.
+// t >= 0.  ops/intersect.early_exits names the rows that leave the split
+// below early.
 //
 // Layout (row-major f32):
 //   rays [R, 8]  o.xyz, d.xyz, live, t_max
@@ -21,6 +22,14 @@ namespace mcpt {
 
 constexpr float kEpsilon = 1e-6f;
 constexpr float kHuge = 1e32f;
+// Early u exit: with det >= kEpsilon, a u numerator above det * kUSlack
+// makes the rounded u = num * (1 / det) exceed 1, and one below
+// -det * kUFloor makes it negative (the exact product is far from the
+// underflow to -0), whatever the roundings of 1 / det, of the product and
+// of the bounds (each within a factor 1 +- 2^-22, 1 / det subnormal
+// included).
+constexpr float kUSlack = 1.0f + 0x1p-20f;
+constexpr float kUFloor = 0x1p-100f;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, live, t_max;
@@ -44,7 +53,16 @@ __device__ __forceinline__ Tri load_tri(const float* __restrict__ g) {
              __ldg(g + 6), __ldg(g + 7), __ldg(g + 8)};
 }
 
-// Moller-Trumbore in the reference operation order; returns valid, writes t.
+// Moller-Trumbore in the reference operation order, split at the
+// determinant: a row with !(det >= kEpsilon) (back-facing, grazing or NaN,
+// which the full test also rejects) returns before the division and the
+// rest of the test.  Written negated so that a NaN det stays a miss.  Past
+// the split det >= 1e-6, so 1 / det is the reference's guarded reciprocal
+// 1 / (|det| > 1e-30 ? det : 1) bit for bit.  A second early exit rejects
+// rows whose u numerator alone proves u < 0 or u > 1 (conservatively:
+// only rows the full test also rejects; NaN goes on).  Every surviving
+// test rounds as the full reference does.  Returns valid, writes t when
+// valid.
 __device__ __forceinline__ bool moller_trumbore(const Ray& r, const Tri& g,
                                                 float* t_out) {
   // pvec = cross(d, e2)
@@ -52,9 +70,12 @@ __device__ __forceinline__ bool moller_trumbore(const Ray& r, const Tri& g,
   const float py = r.dz * g.e2x - r.dx * g.e2z;
   const float pz = r.dx * g.e2y - r.dy * g.e2x;
   const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
-  const float inv_det = 1.0f / (fabsf(det) > 1e-30f ? det : 1.0f);
+  if (!(det >= kEpsilon)) return false;
   const float tx = r.ox - g.v0x, ty = r.oy - g.v0y, tz = r.oz - g.v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float u_num = tx * px + ty * py + tz * pz;
+  if (u_num < -det * kUFloor || u_num > det * kUSlack) return false;
+  const float inv_det = 1.0f / det;
+  const float u = u_num * inv_det;
   // qvec = cross(tvec, e1)
   const float qx = ty * g.e1z - tz * g.e1y;
   const float qy = tz * g.e1x - tx * g.e1z;
@@ -62,8 +83,7 @@ __device__ __forceinline__ bool moller_trumbore(const Ray& r, const Tri& g,
   const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   const float t = (g.e2x * qx + g.e2y * qy + g.e2z * qz) * inv_det;
   *t_out = t;
-  return det >= kEpsilon && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-         u + v <= 1.0f && t >= 0.0f;
+  return u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
 }
 
 }  // namespace mcpt

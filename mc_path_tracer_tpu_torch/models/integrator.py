@@ -129,7 +129,7 @@ def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
     elif route == "dense":
         _, tri_id = dense.dense_closest(rays, scene.tris.geo)
     else:
-        _, tri_id = traversal.trace_closest(rays, scene.bvh.packed, scene.tris.geo)
+        _, tri_id = traversal.trace_closest(rays, scene.bvh, scene.tris.geo)
     return _detach(finish_closest(scene.tris, tri_id, ro, rd))
 
 
@@ -139,7 +139,7 @@ def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
         return traversal.anyhit_plain(rays, scene.tris.geo)
     if route == "dense":
         return dense.dense_anyhit(rays, scene.tris.geo)
-    return traversal.trace_anyhit(rays, scene.bvh.packed, scene.tris.geo)
+    return traversal.trace_anyhit(rays, scene.bvh, scene.tris.geo)
 
 
 def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,

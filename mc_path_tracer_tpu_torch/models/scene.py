@@ -33,7 +33,7 @@ from mc_path_tracer_tpu_torch.models.materials import (
     make_material_table,
 )
 from mc_path_tracer_tpu_torch.ops import envmap
-from mc_path_tracer_tpu_torch.ops.bvh import build_bvh
+from mc_path_tracer_tpu_torch.ops.bvh import build_bvh, collapse_wide
 from mc_path_tracer_tpu_torch.ops.intersect import BVHArrays, TriangleSoA
 from mc_path_tracer_tpu_torch.utils import native
 from mc_path_tracer_tpu_torch.utils.image import load_hdr
@@ -194,7 +194,8 @@ def scene_data_from_arrays(arrays: dict[str, np.ndarray],
                           device=DEFAULT_DEVICE) -> SceneData:
     """SceneData on `device` from a built scene flattened by scene_arrays.
     Fields the port has no use for (the TPU layouts `wide` and `leaf`) are
-    ignored; a scene with textures is refused."""
+    ignored; the port's own 4-wide table is collapsed from the binary BVH
+    arrays; a scene with textures is refused."""
     device = resolve_device(device)
 
     def get(key):
@@ -215,7 +216,10 @@ def scene_data_from_arrays(arrays: dict[str, np.ndarray],
         geo=torch.cat([get("tris.v0"), get("tris.e1"), get("tris.e2")], dim=1)
         .to(torch.float32).contiguous(),
     )
-    bvh = BVHArrays(**{f: get(f"bvh.{f}") for f in BVHArrays._fields})
+    binary = ("bmin", "bmax", "first", "count", "skip")
+    wide, depth = collapse_wide(*(arrays[f"bvh.{f}"] for f in binary))
+    bvh = BVHArrays(**{f: get(f"bvh.{f}") for f in (*binary, "packed")},
+                    wide=torch.from_numpy(wide).to(device), wide_depth=depth)
     materials = MaterialTable(**{f: get(f"materials.{f}") for f in MaterialTable._fields})
     env = lights_mod.EnvLight(
         color=get("lights.env.color"),

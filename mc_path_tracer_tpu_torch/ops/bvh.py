@@ -1,11 +1,12 @@
-"""Binary threaded BVH build and leaf-order triangle reorder (port of the
-numpy parts of mc_path_tracer_tpu/ops/bvh.py).
+"""Binary threaded BVH build, its 4-wide collapse, and leaf-order triangle
+reorder (port of the numpy parts of mc_path_tracer_tpu/ops/bvh.py).
 
 Per-triangle world bounds -> the native C++ builder (csrc/bvh.cpp through
 utils/native) or, where it cannot be built, the numpy median builder ->
-threaded depth-first node arrays, the packed [N, 8] node table, and the
-triangles reordered into leaf order with their packed shading rows.  All
-host numpy; tensors move to the device once, at the end.
+threaded depth-first node arrays, the packed [N, 8] node table, the 4-wide
+node table the traversal kernel walks (`collapse_wide`), and the triangles
+reordered into leaf order with their packed shading rows.  All host numpy;
+tensors move to the device once, at the end.
 """
 
 from __future__ import annotations
@@ -91,12 +92,110 @@ def _packed_nodes(nb_min, nb_max, first, count, skip) -> np.ndarray:
     )
 
 
+# wide-table child boxes are padded outward by this fraction of the scene's
+# largest absolute coordinate, so that a ray the triangle test finds never
+# misses a box by f32 rounding (a zero-thickness box of a floor or a quad)
+BOX_PAD = 2.0 ** -18
+WIDE = 4                # children per wide node
+WIDE_ROW = 32           # f32 slots per wide node row (128 bytes)
+EMPTY_REF = -1          # ref of an unused child slot
+
+
+def leaf_ref(first, count):
+    """Wide-table ref of a leaf: ~(first * 16 + count), negative and never
+    EMPTY_REF (count >= 1); inner nodes are refs >= 0."""
+    return ~(np.asarray(first, np.int64) * 16 + np.asarray(count, np.int64))
+
+
+def _pad_boxes(lo: np.ndarray, hi: np.ndarray, pad: np.float32):
+    """Boxes grown outward by `pad` and by at least one ulp, in f32."""
+    lo = lo.astype(np.float32)
+    hi = hi.astype(np.float32)
+    lo_p = np.minimum(lo - pad, np.nextafter(lo, np.float32(-np.inf)))
+    hi_p = np.maximum(hi + pad, np.nextafter(hi, np.float32(np.inf)))
+    return lo_p, hi_p
+
+
+def collapse_wide(nb_min, nb_max, first, count, skip):
+    """Collapse the binary threaded tree into 4-wide nodes; returns the
+    [W, 32] f32 table and the tree's depth (wide nodes on the longest
+    root-to-leaf path).
+
+    Each wide node starts from a binary inner node's two children and opens
+    the child of largest surface area that is an inner node, twice, so it
+    holds up to four children in the binary tree's depth-first order.
+    Leaves stay the binary leaves (same first/count, same leaf order).
+    Nodes are numbered level by level from the root (row 0).  Row layout,
+    one 128-byte row per node read as eight float4:
+      [0:4] lo.x  [4:8] hi.x  [8:12] lo.y  [12:16] hi.y  [16:20] lo.z
+      [20:24] hi.z of the four children (boxes padded by BOX_PAD),
+      [24:28] child refs as int32 bits (inner node row >= 0, leaf_ref < -1,
+      EMPTY_REF), [28:32] zero."""
+    n = count.shape[0]
+    first = np.asarray(first, np.int64)
+    count = np.asarray(count, np.int64)
+    if n and (count.max() > 15 or (first * 16 + count).max() >= 2**31):
+        raise ValueError("leaf refs hold first * 16 + count in int32, count <= 15")
+    inner = count == 0
+    left = np.arange(n) + 1
+    right = np.where(inner, skip[np.minimum(left, n - 1)], -1)
+    ext = np.maximum(nb_max - nb_min, 0.0).astype(np.float64)
+    area = np.where(inner, ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+                    + ext[:, 2] * ext[:, 0], -1.0)
+    scale = max(float(np.abs(nb_min[:1]).max(initial=0.0)),
+                float(np.abs(nb_max[:1]).max(initial=0.0)))
+    lo_all, hi_all = _pad_boxes(nb_min, nb_max, np.float32(scale * BOX_PAD))
+
+    cols = np.arange(WIDE)
+    levels = []   # per level: binary children [m, 4] of its wide nodes
+    frontier = np.zeros(1, np.int64)
+    while frontier.size:
+        m = frontier.size
+        kids = np.full((m, WIDE), -1, np.int64)
+        f_inner = inner[frontier]
+        kids[f_inner, 0] = left[frontier[f_inner]]
+        kids[f_inner, 1] = right[frontier[f_inner]]
+        kids[~f_inner, 0] = frontier[~f_inner]        # a root that is a leaf
+        for _ in range(WIDE - 2):
+            a = np.where(kids >= 0, area[np.maximum(kids, 0)], -1.0)
+            pos = a.argmax(axis=1)
+            grow = a.max(axis=1) >= 0.0
+            c = kids[np.arange(m), pos]
+            p = pos[:, None]
+            opened = np.take_along_axis(kids, np.clip(np.where(cols < p, cols, cols - 1),
+                                                      0, WIDE - 1), axis=1)
+            opened = np.where(cols == p, left[c][:, None], opened)
+            opened = np.where(cols == p + 1, right[c][:, None], opened)
+            kids = np.where(grow[:, None], opened, kids)
+        levels.append(kids)
+        frontier = kids[(kids >= 0) & inner[np.maximum(kids, 0)]]
+
+    rows, offset = [], 1
+    for kids in levels:
+        valid = kids >= 0
+        k = np.maximum(kids, 0)
+        is_inner = valid & inner[k]
+        refs = np.where(is_inner, 0, np.where(valid, leaf_ref(first[k], count[k]), EMPTY_REF))
+        refs[is_inner] = offset + np.arange(int(is_inner.sum()))
+        offset += int(is_inner.sum())
+        lo = np.where(valid[..., None], lo_all[k], 0.0)
+        hi = np.where(valid[..., None], hi_all[k], 0.0)
+        row = np.zeros((kids.shape[0], WIDE_ROW), np.float32)
+        for axis in range(3):
+            row[:, 8 * axis:8 * axis + 4] = lo[..., axis]
+            row[:, 8 * axis + 4:8 * axis + 8] = hi[..., axis]
+        row[:, 24:28] = refs.astype(np.int32).view(np.float32)
+        rows.append(row)
+    return np.concatenate(rows), len(levels)
+
+
 def build_bvh(tris: dict[str, np.ndarray], max_leaf: int = 4,
               method: int = native.SAH, device=DEFAULT_DEVICE):
     """Build the threaded BVH over host triangle arrays (keys of
     TriangleSoA, optional tan0..tan2) and reorder the triangles into leaf
     order.  Returns (BVHArrays, TriangleSoA, builder) on `device`, with
-    builder "native" or "numpy"."""
+    builder "native" or "numpy"; the BVH carries both the binary table
+    (`packed`) and its 4-wide collapse (`wide`, `wide_depth`)."""
     if max_leaf > 15:
         raise ValueError("packed node meta reserves 4 bits for the leaf count")
     device = resolve_device(device)
@@ -130,8 +229,10 @@ def build_bvh(tris: dict[str, np.ndarray], max_leaf: int = 4,
         attrs=dev(attrs),
         geo=dev(geo.astype(np.float32)),
     )
+    wide, depth = collapse_wide(nb_min, nb_max, first, count, skip)
     bvh = BVHArrays(
         bmin=dev(nb_min), bmax=dev(nb_max), first=dev(first), count=dev(count),
         skip=dev(skip), packed=dev(_packed_nodes(nb_min, nb_max, first, count, skip)),
+        wide=dev(wide), wide_depth=depth,
     )
     return bvh, new_tris, builder

@@ -4,15 +4,18 @@ mc_path_tracer_tpu/ops/intersect.py).
   - Moller-Trumbore with backface culling: det < K_EPSILON or t < 0 is a
     miss (Triangle.cu TEST_CULL path).
   - Barycentric attributes u*a1 + v*a2 + (1-u-v)*a0.
-  - The BVH is threaded (skip-link) and depth-first: node i hit -> i+1,
-    miss or leaf done -> skip; leaves own contiguous triangle ranges of the
-    leaf-order triangle arrays.
+  - The binary BVH is threaded (skip-link) and depth-first: node i hit ->
+    i+1, miss or leaf done -> skip; leaves own contiguous triangle ranges of
+    the leaf-order triangle arrays.  The traversal kernel walks its 4-wide
+    collapse (ops/bvh.collapse_wide), which keeps the same leaves.
 
 Traversal itself lives in ops/kernels/traversal.py: the CUDA kernel and
 its plain (brute-force) version share the packed contract below.
-  rays  [R, 8] f32: o.xyz, d.xyz, live (> 0.5), t_max
-  nodes [N, 8] f32: bmin, bmax, bitcast(first*16 + count), bitcast(skip)
-  geo   [T, 9] f32: v0, e1, e2 in leaf order
+  rays   [R, 8] f32: o.xyz, d.xyz, live (> 0.5), t_max
+  packed [N, 8] f32: bmin, bmax, bitcast(first*16 + count), bitcast(skip)
+  wide   [W, 32] f32: per node the SoA boxes of 4 children and their refs
+         (layout in ops/bvh.collapse_wide)
+  geo    [T, 9] f32: v0, e1, e2 in leaf order
 Every intersection is outside autograd: geometry is not differentiated.
 """
 
@@ -61,8 +64,9 @@ class TriangleSoA(NamedTuple):
 
 
 class BVHArrays(NamedTuple):
-    """Threaded (skip-link) BVH in depth-first order; `packed` is the
-    [N, 8] node table the traversal reads (see module docstring)."""
+    """Threaded (skip-link) BVH in depth-first order, its [N, 8] node table
+    `packed` (the JAX package's), and the 4-wide table `wide` the traversal
+    kernel walks, with its depth (see module docstring)."""
 
     bmin: torch.Tensor   # [N, 3] f32
     bmax: torch.Tensor   # [N, 3] f32
@@ -70,6 +74,8 @@ class BVHArrays(NamedTuple):
     count: torch.Tensor  # [N] int32 (0 for inner nodes)
     skip: torch.Tensor   # [N] int32
     packed: torch.Tensor  # [N, 8] f32
+    wide: torch.Tensor   # [W, 32] f32
+    wide_depth: int      # wide nodes on the longest root-to-leaf path
 
     @property
     def num_nodes(self) -> int:
@@ -111,6 +117,26 @@ def moller_trumbore(ray_o, ray_d, v0, e1, e2):
         & (t >= 0.0)
     )
     return valid, t, u, v
+
+
+# csrc/mt.cuh kUSlack, kUFloor: a u numerator above det * U_SLACK proves
+# u > 1, one below -det * U_FLOOR proves u < 0
+U_SLACK = 1.0 + 2.0**-20
+U_FLOOR = 2.0**-100
+
+
+def early_exits(ray_o, ray_d, v0, e1, e2):
+    """Where csrc/mt.cuh's test stops before the division; inputs
+    broadcast.  Returns (det_exit, u_exit, det, tvec, u_num): det_exit
+    where !(det >= K_EPSILON) (back-facing, grazing, NaN), u_exit where the
+    test passes the det split and its u numerator proves u < 0 or u > 1."""
+    pvec = cross(ray_d, e2)
+    det = dot(e1, pvec)
+    tvec = ray_o - v0
+    u_num = dot(tvec, pvec)
+    det_exit = ~(det >= K_EPSILON)
+    u_exit = ~det_exit & ((u_num < -det * U_FLOOR) | (u_num > det * U_SLACK))
+    return det_exit, u_exit, det, tvec, u_num
 
 
 def winner_uvt(tris: TriangleSoA, tri_id, ray_o, ray_d):

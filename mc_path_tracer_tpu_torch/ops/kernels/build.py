@@ -137,3 +137,15 @@ def load_all(names) -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:
 def load(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (if needed) and load csrc/<name>.cu; cached per process."""
     return load_all([name])[name]
+
+
+def bind(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
+    """load(name) with each entry point of `argtypes` bound to its ctypes
+    argument list and an int (cudaError_t) result, once per process."""
+    lib, _ = load(name)
+    if not getattr(lib, "_mcpt_bound", False):
+        for fn, args in argtypes.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        lib._mcpt_bound = True
+    return lib

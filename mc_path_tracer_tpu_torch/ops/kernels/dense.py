@@ -10,9 +10,12 @@ ops/intersect.py):
   dense_anyhit(rays, geo) -> occ [R] bool: some triangle hit with
       t <= t_max; False on a dead lane.
 
-Its plain versions are the traversal's `closest_plain` / `anyhit_plain`,
-which are exactly this function.  On CPU tensors the wrappers run them; on
-CUDA tensors they launch the kernel or raise.
+The kernel splits the triangles over slices of a second grid dimension;
+dense_closest merges the slices' hits through a scratch of one 64-bit key
+per ray, which the wrapper allocates.  Its plain versions are the
+traversal's `closest_plain` / `anyhit_plain`, which are exactly this
+function.  On CPU tensors the wrappers run them; on CUDA tensors they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -26,17 +29,11 @@ from mc_path_tracer_tpu_torch.ops.kernels.traversal import anyhit_plain, closest
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def _library() -> ctypes.CDLL:
-    lib, _ = build.load("dense")
-    if not getattr(lib, "_mcpt_bound", False):
-        lib.mcpt_dense_closest.argtypes = [_P, _I, _P, _I, _P, _P, _P]
-        lib.mcpt_dense_closest.restype = _I
-        lib.mcpt_dense_anyhit.argtypes = [_P, _I, _P, _I, _P, _P]
-        lib.mcpt_dense_anyhit.restype = _I
-        lib._mcpt_bound = True
-    return lib
+# the C entry points of csrc/dense.cu: pointers and the stream as void*
+ARGTYPES = {
+    "mcpt_dense_closest": [_P, _I, _P, _I, _P, _P, _P, _P],
+    "mcpt_dense_anyhit": [_P, _I, _P, _I, _P, _P],
+}
 
 
 def dense_closest(rays: torch.Tensor, geo: torch.Tensor):
@@ -47,12 +44,15 @@ def dense_closest(rays: torch.Tensor, geo: torch.Tensor):
     r = rays.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=rays.device)
     tri_id = torch.empty(r, dtype=torch.int32, device=rays.device)
+    # one 64-bit (bits(t) << 32 | id) key per ray, merged across slices
+    keys = torch.empty(r, dtype=torch.int64, device=rays.device)
     if r:
-        lib = _library()
+        lib = build.bind("dense", ARGTYPES)
         with torch.cuda.device(rays.device):
             stream = torch.cuda.current_stream().cuda_stream
             launch(lib.mcpt_dense_closest, "dense_closest", rays.data_ptr(), r,
-                   geo.data_ptr(), geo.shape[0], t.data_ptr(), tri_id.data_ptr(), stream)
+                   geo.data_ptr(), geo.shape[0], keys.data_ptr(), t.data_ptr(),
+                   tri_id.data_ptr(), stream)
     return t, tri_id
 
 
@@ -65,7 +65,7 @@ def dense_anyhit(rays: torch.Tensor, geo: torch.Tensor) -> torch.Tensor:
     r = rays.shape[0]
     occ = torch.empty(r, dtype=torch.bool, device=rays.device)
     if r:
-        lib = _library()
+        lib = build.bind("dense", ARGTYPES)
         with torch.cuda.device(rays.device):
             stream = torch.cuda.current_stream().cuda_stream
             launch(lib.mcpt_dense_anyhit, "dense_anyhit", rays.data_ptr(), r,

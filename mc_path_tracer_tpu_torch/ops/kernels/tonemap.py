@@ -20,15 +20,8 @@ from mc_path_tracer_tpu_torch.ops import tonemap as tonemap_ops
 from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES, build, launch
 
 _P = ctypes.c_void_p
-
-
-def _library() -> ctypes.CDLL:
-    lib, _ = build.load("tonemap")
-    if not getattr(lib, "_mcpt_bound", False):
-        lib.mcpt_tonemap.argtypes = [_P, _P, ctypes.c_float, ctypes.c_longlong, _P, _P]
-        lib.mcpt_tonemap.restype = ctypes.c_int
-        lib._mcpt_bound = True
-    return lib
+# the C entry point of csrc/tonemap.cu: pointers and the stream as void*
+ARGTYPES = {"mcpt_tonemap": [_P, _P, ctypes.c_float, ctypes.c_longlong, _P, _P]}
 
 
 def _check(ld: torch.Tensor, samples: torch.Tensor) -> None:
@@ -56,7 +49,7 @@ def tonemap(ld: torch.Tensor, samples: torch.Tensor, exposure: float = 1.0) -> t
     out = torch.empty(ld.shape, dtype=torch.uint8, device=ld.device)
     n = samples.numel()
     if n:
-        lib = _library()
+        lib = build.bind("tonemap", ARGTYPES)
         with torch.cuda.device(ld.device):
             stream = torch.cuda.current_stream().cuda_stream
             launch(lib.mcpt_tonemap, "tonemap", ld.data_ptr(), samples.data_ptr(),

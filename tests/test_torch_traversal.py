@@ -142,8 +142,8 @@ def test_cpu_wrappers_take_the_plain_route(scene):
     ro, rd, mask, t_max = random_rays(seed=11)
     rays = tisect.pack_rays(*(torch.from_numpy(a) for a in (ro, rd, mask, t_max)))
     before = dict(traversal.LAUNCHES)
-    t, tri_id = traversal.trace_closest(rays, tb.packed, ttris.geo)
-    occ = traversal.trace_anyhit(rays, tb.packed, ttris.geo)
+    t, tri_id = traversal.trace_closest(rays, tb, ttris.geo)
+    occ = traversal.trace_anyhit(rays, tb, ttris.geo)
     assert traversal.LAUNCHES["closest"] == before["closest"]
     assert traversal.LAUNCHES["anyhit"] == before["anyhit"]
     assert traversal.LAUNCHES["plain"] == before["plain"] + 2
@@ -178,7 +178,7 @@ def test_wrapper_rejects_bad_rays(scene, fn, bad):
         "flat": rays.reshape(-1),
     }[bad]
     with pytest.raises((TypeError, ValueError)):
-        fn(rays, tb.packed, ttris.geo)
+        fn(rays, tb, ttris.geo)
 
 
 @pytest.mark.parametrize("name", ["traversal", "dense", "tonemap"])

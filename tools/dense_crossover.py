@@ -7,8 +7,9 @@ sphere of growing tessellation in place of config2's sphere; config2
 itself is the 2,320-triangle row.  For each scene: 65,536 camera rays of a
 256x256 frame (closest hit) and 65,536 bounded shadow rays from their hits
 toward points sampled on the quad (any-hit), each timed with CUDA events
-over 20 launches on both kernels, and the kernels' outputs held against
-each other.  Prints one JSON line per scene.
+over 20 launches on both kernels and by their device time
+(torch.profiler), and the kernels' outputs held against each other.
+Prints one JSON line per scene.
 
     python3 tools/dense_crossover.py
 
@@ -61,7 +62,7 @@ def main() -> int:
     for rings, segments in SPHERES:
         scene, cam = scene_with_sphere(rings, segments)
         sd = scene.build(device)
-        geo, nodes = sd.tris.geo, sd.bvh.packed
+        geo, bvh = sd.tris.geo, sd.bvh
         ro, rd = cs._camera_rays(cam, SIZE, SIZE, px, py, device)
         camera_rays = intersect.pack_rays(ro, rd)
         _, tri_id = dense.dense_closest(camera_rays, geo)
@@ -76,11 +77,14 @@ def main() -> int:
             ("anyhit", shadow_rays, dense.dense_anyhit, traversal.trace_anyhit),
         ):
             d_ms, d_out = cs._time_ms(lambda: dense_fn(rays, geo), 20)
-            t_ms, t_out = cs._time_ms(lambda: trav_fn(rays, nodes, geo), 20)
+            t_ms, t_out = cs._time_ms(lambda: trav_fn(rays, bvh, geo), 20)
             d_id = d_out[1] if kind == "closest" else d_out
             t_id = t_out[1] if kind == "closest" else t_out
             row[f"{kind}_dense_ms"] = d_ms
             row[f"{kind}_traversal_ms"] = t_ms
+            row[f"{kind}_dense_device_ms"] = cs._device_ms(lambda: dense_fn(rays, geo), 20)
+            row[f"{kind}_traversal_device_ms"] = cs._device_ms(
+                lambda: trav_fn(rays, bvh, geo), 20)
             row[f"{kind}_agreement"] = (d_id == t_id).float().mean().item()
         print(json.dumps(row), flush=True)
     return 0

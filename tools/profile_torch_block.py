@@ -35,9 +35,10 @@ import chip_smoke as cs  # noqa: E402
 BLOCKS = (0, 15, 31)
 REPS = 3
 AREA_SPP = 8
-# device kernel name fragments, most specific first
-KERNEL_NAMES = ("dense_closest_kernel", "dense_anyhit_kernel", "closest_kernel",
-                "anyhit_kernel", "tonemap_kernel")
+# device kernel name fragments, most specific first (dense_closest also
+# takes its decode kernel)
+KERNEL_NAMES = ("dense_closest", "dense_anyhit", "closest_kernel", "anyhit_kernel",
+                "tonemap_kernel")
 
 
 def profile_block(label, sd, cam, width, height, px, py, cfg, name_limit):
