@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--png PATH]
 
 Builds the three CUDA sources of csrc/ (one nvcc each, in parallel), then
-drives the port's two main paths and holds every kernel against its plain
-PyTorch version on the card:
+drives the port's paths and holds every kernel against its plain PyTorch
+version on the card.  Every frame counts its kernel launches from 0 and
+fails unless each dispatch went through the expected kernel:
 
   [scene] [kernel]  the bench scene (48,002 triangles); the traversal
                     kernel against its plain version on mixed rays and at
@@ -23,6 +24,23 @@ PyTorch version on the card:
                     each frame then saved as a PNG through the tone-map
                     kernel; the two images agree; the 4-triangle area
                     scene under "auto" takes the dense kernel
+  [configs]         configs 1, 3 and 4 at their configured size, spp and
+                    depth, config5 at 1920x1080 x depth 5 cut to 4 spp,
+                    each with the native BVH builder (LBVH for config5),
+                    saved as PNGs
+  [golden]          config4 and config5 at the goldens' sizes, key 42,
+                    against the JAX package's CPU renders (tests/golden)
+  [gltf]            a textured GLB written here (write_textured_glb),
+                    loaded with Scene.load, one object moved, rendered at
+                    512x512 x 16 spp x depth 4 under "auto" (the dense
+                    kernel) and "pallas" (the traversal kernel): the
+                    images agree, the kernel route agrees with the plain
+                    route on a crop, the frame is saved as a PNG
+  [reuse]           config2 with reuse_brdf_ray: one closest hit per
+                    sample fewer; on config4, fewer any-hit lanes
+  [progressive]     render_progressive on config4 adds up to the 1-spp
+                    renders of its passes; a RenderSession restarts on
+                    set_transform
   [stream]          the traversal kernel on 1,003,520 triangles (the TPU
                     streaming kernel's contract) against plain
   [device-time]     the kernels' device time at the shapes above, under
@@ -64,6 +82,24 @@ ANYHIT_RAYS = 131072      # one block's fused shadow + visibility dispatch
 CROP = 64
 AREA_SIZE, AREA_SPP, AREA_DEPTH = 256, 64, 3     # config2 as configured
 STREAM_RAYS = 2048
+# the configs' triangle counts (procedural stand-ins where assets are absent)
+CONFIG_TRIS = {1: 2304, 3: 4096, 4: 13826, 5: 96770}
+CONFIG5_SPP = 4           # config5's 250 spp cut to fit the run's time
+GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_MEAN_REL = 1e-3, 1e-5, 1e-4
+GLTF_SIZE, GLTF_SPP, GLTF_DEPTH = 512, 16, 4
+GLTF_TRIS = 2 + 1024 + 12  # floor quad, UV sphere, lamp box
+REUSE_LANE_SPP = 2
+PROG_W, PROG_H, PROG_TILE, PROG_SPP = 384, 128, 128, 4    # config4's frame
+# (config, golden file, (width, height), spp, depth, share of pixels within
+# GOLDEN_RTOL), key 42: the JAX package's CPU renders (tests/test_golden.py).
+# config5 takes 0.97, not 0.99: its glossy metal spheres (roughness 0.08)
+# and 256-texel-wide environment turn the last-bit differences of float32
+# sin, cos, exp, log, acos and pow between XLA's CPU code and the port's
+# libraries (tools/libm_drift.py) into per-pixel differences above 1e-3 on
+# a few percent of pixels, alike on the CPU and the card; the frame mean
+# holds GOLDEN_MEAN_REL
+GOLDENS = ((4, "config4", (16, 16), 4, 2, 0.99),
+           (5, "config5_96x54", (96, 54), 2, 3, 0.97))
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "closest": ("mc_path_tracer_tpu_torch/csrc/traversal.cu",
                 "mc_path_tracer_tpu/ops/pallas/traversal_kernel.py:892"),
@@ -487,31 +523,11 @@ def phase_render(sd, device, name_limit):
     return launches, film
 
 
-def phase_route_parity(sd, device):
-    from mc_path_tracer_tpu_torch.models.integrator import (
-        RenderConfig,
-        camera_params,
-        render_tile_radiance,
-    )
-    from mc_path_tracer_tpu_torch.ops import rng
+def phase_route_parity(sd):
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
 
-    x0, y0 = (WIDTH - CROP) // 2, (HEIGHT - CROP) // 2
-    ys, xs = torch.meshgrid(torch.arange(CROP), torch.arange(CROP), indexing="ij")
-    px = (xs.reshape(-1) + x0).float().to(device)
-    py = (ys.reshape(-1) + y0).float().to(device)
-    cam = camera_params(bench_camera(), WIDTH, HEIGHT, device)
-    key = rng.prng_key(0)
-    out = {}
-    for accel in ("auto", "brute"):
-        cfg = RenderConfig(spp=SPP, max_depth=DEPTH, accel=accel)
-        out[accel] = render_tile_radiance(sd, cam, WIDTH, HEIGHT, px, py, key, cfg)
-    a, b = out["auto"], out["brute"]
-    diff = (a - b).abs()
-    agree = (diff <= 1e-3 * b.abs() + 1e-6).all(dim=-1).float().mean().item()
-    log(f"[parity] {CROP}x{CROP} crop, kernel vs plain route: max abs diff "
-        f"{diff.max().item():.3e}, {agree:.4f} of pixels within rel 1e-3")
-    if not bool(torch.isfinite(a).all()) or agree < 0.99:
-        raise AssertionError("kernel route and plain route disagree")
+    _crop_parity("parity", sd, bench_camera(), WIDTH, HEIGHT,
+                 RenderConfig(spp=SPP, max_depth=DEPTH))
 
 
 def phase_tonemap(film, later: list, name_limit):
@@ -685,16 +701,13 @@ def phase_area(sd, cam, cfg, device, png: Path, name_limit):
         log(f"[area] config2 {AREA_SIZE}x{AREA_SIZE} {AREA_SPP} spp depth {AREA_DEPTH} "
             f"accel={accel}: frame {frame_s:.3f} s ({name_limit}); launches {got}; "
             f"image mean {img.mean().item():.5f}; wrote {path}")
-        want = {c_name: per_sample["closest"], a_name: per_sample["anyhit"], "tonemap": 1}
-        wrong = {k: got[k] for k in got if got[k] != want.get(k, 0)}
-        if wrong:
-            raise AssertionError(f"accel={accel}: launches {got}, expected {want}")
-        if not bool(torch.isfinite(img).all()) or img.mean().item() <= 0.0:
-            raise AssertionError(f"config2 accel={accel} is not finite or dark")
+        _expect(f"accel={accel}", got,
+                {c_name: per_sample["closest"], a_name: per_sample["anyhit"], "tonemap": 1})
+        _check_image(f"config2 accel={accel}", img)
         launches[accel] = got
     a, b = images["auto"], images["dense"]
     diff = (a - b).abs()
-    agree = (diff <= 1e-3 * b.abs() + 1e-6).all(dim=-1).float().mean().item()
+    agree = _agree(a, b, 1e-3)
     mean_rel = abs(a.mean().item() - b.mean().item()) / b.mean().item()
     log(f"[area] traversal vs dense route: {agree:.6f} of pixels within rel 1e-3, "
         f"max abs diff {diff.max().item():.3e}, means {a.mean().item():.6f} / "
@@ -779,6 +792,497 @@ def phase_stream(device, later: list, name_limit):
                       {}, "device_ms"))
 
 
+def _frame(scene, cam, width, height, cfg, key=0, device="cuda"):
+    """One render of `scene` (a Scene, built on `device`, or a SceneData)
+    with the launch counts set to 0 just before and read just after:
+    (film, seconds, launches)."""
+    from mc_path_tracer_tpu_torch.models.integrator import render
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    _reset()
+    t0 = time.perf_counter()
+    film = render(scene, cam, width, height, cfg, key=rng.prng_key(key), device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return film, seconds, _launches()
+
+
+def _expect(label, got, want):
+    """Fail unless the launch counts are exactly `want` (others 0)."""
+    wrong = {k: got[k] for k in got if got[k] != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def _check_image(label, img):
+    if not bool(torch.isfinite(img).all()) or img.mean().item() <= 0.0:
+        raise AssertionError(f"{label}: image is not finite, or dark")
+
+
+def _agree(a, b, rel):
+    """Share of pixels whose every channel is within rel of b (+1e-6)."""
+    return ((a - b).abs() <= rel * b.abs() + 1e-6).all(dim=-1).float().mean().item()
+
+
+def _blocks(width, height):
+    from mc_path_tracer_tpu_torch.models.integrator import PIXEL_CHUNK
+
+    return -(-width * height // PIXEL_CHUNK)
+
+
+def phase_configs(device, out_dir: Path, name_limit) -> dict:
+    """Configs 1, 3 and 4 at their configured size, spp and depth, and
+    config5 at 1920x1080 x depth 5 cut to CONFIG5_SPP spp, each through the
+    traversal kernel (every one has more than DENSE_ACCEL_MAX_TRIS
+    triangles) and saved as a PNG through the tone-map kernel; config5 must
+    be built by the native LBVH.  Returns the built Scenes by number."""
+    from mc_path_tracer_tpu_torch import configs
+    from mc_path_tracer_tpu_torch.utils import native
+
+    scenes = {}
+    for n in (1, 3, 4, 5):
+        scene, cam, cfg, (w, h) = configs.ALL_CONFIGS[n]()
+        if n == 5:
+            if scene.bvh_method != native.LBVH:
+                raise AssertionError("config5 does not ask for the LBVH builder")
+            log(f"[configs] config5: cut from {cfg.spp} spp to {CONFIG5_SPP} spp to fit the "
+                f"run's time; {w}x{h} and depth {cfg.max_depth} as configured")
+            cfg = dataclasses.replace(cfg, spp=CONFIG5_SPP)
+        sd = build_scene(f"config{n}", scene, device, CONFIG_TRIS[n])
+        film, seconds, got = _frame(sd, cam, w, h, cfg)
+        path = out_dir / f"config{n}.png"
+        _reset()
+        film.save_png(str(path))
+        saved = _launches()
+        img = film.radiance_mean()
+        per = _blocks(w, h) * cfg.spp * (cfg.max_depth - 1)
+        log(f"[configs] config{n}: {CONFIG_TRIS[n]} triangles, {w}x{h} {cfg.spp} spp depth "
+            f"{cfg.max_depth}: frame {seconds:.3f} s ({name_limit}); launches {got}; "
+            f"image mean {img.mean().item():.5f}; wrote {path} (launches {saved})")
+        _expect(f"config{n}", got, {"closest": per, "anyhit": per})
+        _expect(f"config{n} PNG", saved, {"tonemap": 1})
+        _check_image(f"config{n}", img)
+        scenes[n] = (scene, cam)
+    return scenes
+
+
+def phase_golden(scenes, device):
+    """Config4 at 16x16 x 4 spp x depth 2 and config5 at 96x54 x 2 spp x
+    depth 3, key 42, on the card through the kernels, against the JAX
+    package's CPU renders in tests/golden/."""
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+
+    for n, name, (w, h), spp, depth, min_share in GOLDENS:
+        scene, cam = scenes[n]
+        film, seconds, got = _frame(scene, cam, w, h, RenderConfig(spp=spp, max_depth=depth),
+                                    key=42, device=device)
+        img = film.radiance_mean()
+        want = torch.from_numpy(np.load(Path(__file__).parent / "tests" / "golden" / f"{name}.npy"))
+        got_img = img.cpu()
+        close = torch.isclose(got_img, want, rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL)
+        share = close.all(dim=-1).float().mean().item()
+        share_1e2 = torch.isclose(got_img, want, rtol=1e-2, atol=GOLDEN_ATOL).all(
+            dim=-1).float().mean().item()
+        mean_rel = abs(got_img.mean().item() - want.mean().item()) / want.mean().item()
+        log(f"[golden] {name}: {share:.6f} of pixels within rtol {GOLDEN_RTOL:g} / atol "
+            f"{GOLDEN_ATOL:g} (at least {min_share}), {share_1e2:.6f} within rtol 1e-2, max "
+            f"abs diff {(got_img - want).abs().max().item():.3e}, frame mean rel "
+            f"{mean_rel:.3e}; launches {got}")
+        per = _blocks(w, h) * spp * (depth - 1)
+        _expect(name, got, {"closest": per, "anyhit": per})
+        if share < min_share or mean_rel > GOLDEN_MEAN_REL:
+            raise AssertionError(f"{name} misses its golden")
+
+
+def textured_scene(scene_cls, path):
+    """The glTF test scene through a package's Scene API: the GLB loaded,
+    the sphere moved by set_transform, a dim environment and a sun."""
+    s = scene_cls()
+    s.set_environment_color((0.25, 0.3, 0.4), ls=1.0)
+    s.load(str(path))
+    s.set_transform(1, translation=(0.2, 0.1, -0.2), rotation_deg=(0.0, 35.0, 10.0),
+                    scale=1.1)
+    s.add_directional_light((0.5, 1.0, 0.3), color=(1.0, 0.95, 0.9), ls=1.5)
+    return s
+
+
+def textured_camera(camera_cls):
+    return camera_cls(position=np.array([2.2, 2.4, 4.0]),
+                      target=np.array([0.0, 0.6, 0.0]), fov_deg=40.0)
+
+
+def phase_gltf(device, out_dir: Path, name_limit) -> None:
+    """The textured glTF path: the GLB written by write_textured_glb loaded
+    with Scene.load, one object moved, rendered under "auto" (the dense
+    kernel) and accel="pallas" (the traversal kernel); the two images
+    agree, the kernel route agrees with the plain route on a crop, and the
+    frame is saved through the tone-map kernel."""
+    from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+
+    path = write_textured_glb(out_dir / "textured.glb")
+    t0 = time.perf_counter()
+    scene = textured_scene(Scene, path)
+    load_s = time.perf_counter() - t0
+    sd = build_scene("textured glTF", scene, device, GLTF_TRIS)
+    log(f"[gltf] {path} ({path.stat().st_size} bytes): loaded in {load_s:.3f} s, "
+        f"{len(scene.objects)} objects, {sd.atlas.count} textures in a "
+        f"{tuple(sd.atlas.data.shape)} atlas, {sd.lights.area.count} emissive triangles")
+    cam = textured_camera(PerspectiveCamera)
+    size, spp, depth = GLTF_SIZE, GLTF_SPP, GLTF_DEPTH
+    blocks = _blocks(size, size)
+    # area light: per sample 1 + (depth - 1) + (depth - 2) closest, depth - 1 any-hit
+    closest = blocks * spp * (2 * depth - 2)
+    anyhit = blocks * spp * (depth - 1)
+    images = {}
+    for accel, names in (("auto", ("dense_closest", "dense_anyhit")),
+                         ("pallas", ("closest", "anyhit"))):
+        cfg = RenderConfig(spp=spp, max_depth=depth, accel=accel)
+        film, seconds, got = _frame(sd, cam, size, size, cfg)
+        img = film.radiance_mean()
+        log(f"[gltf] {size}x{size} {spp} spp depth {depth} accel={accel}: frame {seconds:.3f} s "
+            f"({name_limit}); launches {got}; image mean {img.mean().item():.5f}")
+        _expect(f"gltf accel={accel}", got, {names[0]: closest, names[1]: anyhit})
+        _check_image(f"gltf accel={accel}", img)
+        images[accel] = img
+        if accel == "auto":
+            png = out_dir / "textured.png"
+            _reset()
+            film.save_png(str(png))
+            saved = _launches()
+            _expect("gltf PNG", saved, {"tonemap": 1})
+            log(f"[gltf] wrote {png} through the tone-map kernel (launches {saved})")
+    agree = _agree(images["pallas"], images["auto"], 1e-3)
+    log(f"[gltf] traversal vs dense route: {agree:.6f} of pixels within rel 1e-3, max abs "
+        f"diff {(images['pallas'] - images['auto']).abs().max().item():.3e}")
+    if agree < 0.99:
+        raise AssertionError("the traversal and dense routes disagree on the glTF scene")
+    _crop_parity("gltf", sd, cam, size, size, RenderConfig(spp=spp, max_depth=depth))
+
+
+def _crop_parity(label, sd, cam, width, height, cfg) -> None:
+    """The kernel route ("auto") against the plain route ("brute") on the
+    central CROP x CROP pixels."""
+    from mc_path_tracer_tpu_torch.models.integrator import camera_params, render_tile_radiance
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    device = sd.tris.v0.device
+    x0, y0 = (width - CROP) // 2, (height - CROP) // 2
+    ys, xs = torch.meshgrid(torch.arange(CROP), torch.arange(CROP), indexing="ij")
+    px = (xs.reshape(-1) + x0).float().to(device)
+    py = (ys.reshape(-1) + y0).float().to(device)
+    params = camera_params(cam, width, height, device)
+    out = {accel: render_tile_radiance(sd, params, width, height, px, py, rng.prng_key(0),
+                                       dataclasses.replace(cfg, accel=accel))
+           for accel in ("auto", "brute")}
+    agree = _agree(out["auto"], out["brute"], 1e-3)
+    log(f"[{label}] {CROP}x{CROP} crop, kernel vs plain route: {agree:.6f} of pixels within "
+        f"rel 1e-3, max abs diff {(out['auto'] - out['brute']).abs().max().item():.3e}")
+    if not bool(torch.isfinite(out["auto"]).all()) or agree < 0.99:
+        raise AssertionError(f"{label}: kernel route and plain route disagree")
+
+
+def _count_lanes(fn):
+    """Run fn() with the two traversal entry points wrapped to add up the
+    lanes they are given (rays dispatched, and live ones); the wrappers
+    still count their own launches."""
+    from mc_path_tracer_tpu_torch.ops.kernels import traversal
+
+    lanes = {"closest": [0, 0], "anyhit": [0, 0]}
+    originals = traversal.trace_closest, traversal.trace_anyhit
+
+    def counting(name, original):
+        def wrapped(rays, *args):
+            lanes[name][0] += rays.shape[0]
+            lanes[name][1] += int((rays[:, 6] > 0.5).sum().item())
+            return original(rays, *args)
+        return wrapped
+
+    traversal.trace_closest = counting("closest", originals[0])
+    traversal.trace_anyhit = counting("anyhit", originals[1])
+    try:
+        fn()
+    finally:
+        traversal.trace_closest, traversal.trace_anyhit = originals
+    return lanes
+
+
+def phase_reuse(sd2, cam2, cfg2, two_sample: dict, scenes, device, name_limit) -> None:
+    """reuse_brdf_ray on config2 at its configured size (traversal kernel):
+    one closest hit per sample fewer than the two-sample estimator, the
+    same any-hit dispatches (config2's area light bounds the shadow rays
+    either way).  On config4 (no area light) the shared trace replaces the
+    fused 2R-lane any-hit of every bounce but the last: fewer any-hit
+    lanes.  The kernel route agrees with the plain route on a crop."""
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, render
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    cfg = dataclasses.replace(cfg2, reuse_brdf_ray=True)
+    film, seconds, got = _frame(sd2, cam2, AREA_SIZE, AREA_SIZE, cfg)
+    img = film.radiance_mean()
+    log(f"[reuse] config2 {AREA_SIZE}x{AREA_SIZE} {cfg.spp} spp depth {cfg.max_depth} "
+        f"reuse_brdf_ray=True: frame {seconds:.3f} s ({name_limit}); launches {got} "
+        f"(two-sample: {two_sample}); image mean {img.mean().item():.5f}")
+    _expect("reuse config2", got, {"closest": 3 * cfg.spp, "anyhit": 2 * cfg.spp})
+    _check_image("reuse config2", img)
+    if got["closest"] >= two_sample["closest"] or got["anyhit"] > two_sample["anyhit"]:
+        raise AssertionError("reuse_brdf_ray made no fewer dispatches than two samples")
+    scene4, cam4 = scenes[4]
+    counts = {}
+    for reuse in (False, True):
+        c4 = RenderConfig(spp=REUSE_LANE_SPP, max_depth=3, reuse_brdf_ray=reuse)
+        counts[reuse] = _count_lanes(lambda: render(scene4, cam4, PROG_W, PROG_H, c4,
+                                                    key=rng.prng_key(0), device=device))
+    per = {k: {e: [x / (REUSE_LANE_SPP * 2) for x in v] for e, v in c.items()}
+           for k, c in counts.items()}
+    log(f"[reuse] config4 {PROG_W}x{PROG_H} {REUSE_LANE_SPP} spp depth 3, lanes per sample per NEE "
+        f"bounce [dispatched, live]: two-sample {per[False]}, reuse {per[True]}")
+    if counts[True]["anyhit"][0] >= counts[False]["anyhit"][0]:
+        raise AssertionError("reuse_brdf_ray made no fewer any-hit lanes on config4")
+    _crop_parity("reuse", sd2, cam2, AREA_SIZE, AREA_SIZE,
+                 dataclasses.replace(cfg, spp=8))
+
+
+def phase_progressive(scenes, device, name_limit) -> None:
+    """render_progressive on config4 at 384x128, PROG_SPP passes of 1 spp,
+    128-pixel tiles: its final film equals the sum of `render` frames of
+    1 spp with the passes' keys fold_in(key, p).  A RenderSession restarts
+    at one pass after set_transform."""
+    from mc_path_tracer_tpu_torch.models.engine import RenderSession
+    from mc_path_tracer_tpu_torch.models.integrator import (
+        RenderConfig,
+        render,
+        render_progressive,
+    )
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    scene, cam = scenes[4]
+    w, h, tile = PROG_W, PROG_H, PROG_TILE
+    cfg = RenderConfig(spp=PROG_SPP, max_depth=3)
+    key = rng.prng_key(0)
+    _reset()
+    t0 = time.perf_counter()
+    steps = 0
+    for film in render_progressive(scene, cam, w, h, cfg, key=key, tile=tile, device=device):
+        steps += 1
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _launches()
+    tiles = -(-w // tile) * -(-h // tile)
+    per = PROG_SPP * tiles * (cfg.max_depth - 1)
+    log(f"[progressive] config4 {w}x{h} {PROG_SPP} passes x {tiles} tiles of {tile}: "
+        f"{steps} steps in {seconds:.3f} s ({name_limit}); launches {got}")
+    _expect("progressive", got, {"closest": per, "anyhit": per})
+    ref = torch.zeros_like(film.ld)
+    for p in range(PROG_SPP):
+        ref = ref + render(scene, cam, w, h, dataclasses.replace(cfg, spp=1),
+                           key=rng.fold_in(key, p), device=device).ld
+    agree = _agree(film.ld, ref, 1e-5)
+    log(f"[progressive] final film vs the sum of {PROG_SPP} 1-spp renders keyed fold_in(key, "
+        f"p): {agree:.6f} of pixels within rel 1e-5, max abs diff "
+        f"{(film.ld - ref).abs().max().item():.3e}; samples {film.samples.min().item():g}.."
+        f"{film.samples.max().item():g}")
+    if agree < 0.999 or not bool((film.samples == PROG_SPP).all()):
+        raise AssertionError("render_progressive does not add up to render")
+    session = RenderSession(scene=scene, camera=cam, width=w, height=h, cfg=cfg, tile=tile,
+                            device=device)
+    for _ in range(tiles + 1):
+        before = session.step()
+    scene.set_transform(1, translation=(0.0, 0.3, 0.0))
+    after = session.step()
+    log(f"[progressive] RenderSession: samples max {before.samples.max().item():g} before "
+        f"set_transform, {after.samples.max().item():g} after (version {scene.version}), "
+        f"{int((after.samples > 0).sum().item())} pixels sampled")
+    if before.samples.max().item() != 2 or after.samples.max().item() != 1 or \
+            int((after.samples > 0).sum().item()) != tile * tile:
+        raise AssertionError("RenderSession did not restart on set_transform")
+    scene.set_transform(1, translation=(0.0, 0.0, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# Test assets: a PNG encoder with a chosen row filter and a GLB writer.  The
+# [gltf] phase and tests/test_torch_gltf.py load the same file from here.
+# ---------------------------------------------------------------------------
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def encode_png(img: np.ndarray, filter_type: int = 0, palette=None) -> bytes:
+    """PNG bytes of a uint8 image [H, W, C] (C = 1 grey, 3 RGB, 4 RGBA),
+    or of palette indices [H, W] with `palette` [N, 3]; 8 bits per sample,
+    every row filtered with `filter_type` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth)."""
+    import struct
+    import zlib
+
+    from mc_path_tracer_tpu_torch.utils.image import PNG_SIGNATURE
+
+    img = np.asarray(img, np.uint8)
+    if palette is not None:
+        ctype, img = 3, img[..., None]
+    else:
+        img = img[..., None] if img.ndim == 2 else img
+        ctype = {1: 0, 3: 2, 4: 6}[img.shape[2]]
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int32)
+    prior = np.vstack([np.zeros((1, w * c), np.int32), rows[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int32), rows[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int32), prior[:, :-c]])
+    pred = {0: 0, 1: left, 2: prior, 3: (left + prior) // 2,
+            4: _paeth(left, prior, upleft)}[filter_type]
+    filtered = ((rows - pred) & 0xFF).astype(np.uint8)
+    raw = np.hstack([np.full((h, 1), filter_type, np.uint8), filtered])
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    out = [PNG_SIGNATURE, chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
+    if palette is not None:
+        out.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    out += [chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)), chunk(b"IEND", b"")]
+    return b"".join(out)
+
+
+def glb_images() -> list[bytes]:
+    """The test scene's five textures, one per filter type and covering the
+    RGB, RGBA, palette and grey colour types: base colour (RGB, Sub),
+    metallic-roughness (RGBA, Paeth: G roughness, B metallic), normal map
+    (RGB, Average), emissive (palette, Up), occlusion (grey, None)."""
+    rng = np.random.default_rng(7)
+    y, x = np.mgrid[0:32, 0:32]
+    checker = ((x // 8 + y // 8) % 2).astype(bool)
+    base = np.where(checker[..., None], [200, 60, 40], [40, 160, 220])
+    base = np.clip(base + rng.integers(-20, 21, base.shape), 0, 255)
+    mr = np.stack([np.full_like(x, 255), 80 + 5 * x, 40 + 6 * y, 255 - 2 * x], -1)
+    bump = np.stack([128 + 60 * np.sin(x / 3.0), 128 + 60 * np.cos(y / 4.0),
+                     np.full(x.shape, 230.0)], -1)
+    pal = np.array([[255, 240, 200], [255, 180, 90], [120, 200, 255], [30, 30, 30]])
+    idx = ((np.arange(16)[:, None] // 4 + np.arange(16)[None] // 4) % 4)
+    ao = 150 + 100 * np.exp(-((x - 16.0) ** 2 + (y - 16.0) ** 2) / 120.0)
+    return [encode_png(base.astype(np.uint8), 1), encode_png(mr.astype(np.uint8), 4),
+            encode_png(bump.astype(np.uint8), 3), encode_png(idx, 2, palette=pal),
+            encode_png(ao.astype(np.uint8), 0)]
+
+
+def write_textured_glb(path, images: list[bytes] | None = None) -> Path:
+    """Write the textured test scene as a GLB and return its path.
+
+    Three meshes under a root node with translation, rotation and scale:
+    a floor quad (node matrix; positions and normals interleaved in one
+    strided buffer view; TANGENT given), a 1,024-triangle UV sphere and an
+    emissive box lamp (no TANGENT; uint32 indices).  Five embedded PNG
+    textures (glb_images(), or `images` in their place): the floor uses base
+    colour, metallic-roughness, normal and occlusion maps; the sphere base
+    colour (the same image and slot as the floor's, so decoded once), normal
+    and metallic-roughness maps; the lamp an emissive map."""
+    import json
+    import struct
+
+    from mc_path_tracer_tpu_torch.models.primitives import box, plane, uv_sphere
+
+    images = glb_images() if images is None else images
+    blob = bytearray()
+    views, accessors = [], []
+
+    def view(data: bytes, stride: int = 0) -> int:
+        while len(blob) % 4:
+            blob.append(0)
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data),
+                      **({"byteStride": stride} if stride else {})})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(arr, kind, view_idx=None, offset=0, count=None) -> int:
+        arr = np.ascontiguousarray(arr)
+        ctype = {np.dtype(np.float32): 5126, np.dtype(np.uint16): 5123,
+                 np.dtype(np.uint32): 5125}[arr.dtype]
+        if view_idx is None:
+            view_idx = view(arr.tobytes())
+        accessors.append({"bufferView": view_idx, "byteOffset": offset,
+                          "componentType": ctype, "type": kind,
+                          "count": int(count if count is not None else arr.shape[0])})
+        return len(accessors) - 1
+
+    def mesh(name, p, n, uv, idx, material, tangents=None, interleave=False):
+        p, n, uv = (np.asarray(a, np.float32) for a in (p, n, uv))
+        if interleave:
+            v = view(np.hstack([p, n]).tobytes(), stride=24)
+            attrs = {"POSITION": accessor(p, "VEC3", v, 0, len(p)),
+                     "NORMAL": accessor(n, "VEC3", v, 12, len(p))}
+        else:
+            attrs = {"POSITION": accessor(p, "VEC3"), "NORMAL": accessor(n, "VEC3")}
+        attrs["TEXCOORD_0"] = accessor(uv, "VEC2")
+        if tangents is not None:
+            attrs["TANGENT"] = accessor(np.asarray(tangents, np.float32), "VEC4")
+        dtype = np.uint16 if len(p) < 65536 and interleave else np.uint32
+        ind = accessor(np.asarray(idx).reshape(-1).astype(dtype), "SCALAR")
+        return {"name": name, "primitives": [{"attributes": attrs, "indices": ind,
+                                              "material": material, "mode": 4}]}
+
+    fp, fn, fuv, fidx = plane(8.0)
+    # tangents along +x with a flipped handedness on two vertices
+    ftan = np.tile([[1.0, 0.0, 0.0, 1.0]], (len(fp), 1))
+    ftan[:2, 3] = -1.0
+    sp, sn, suv, sidx = uv_sphere(0.8, rings=16, segments=32)
+    bp, bn, buv, bidx = box((0.8, 0.2, 0.8))
+    meshes = [mesh("floor", fp, fn, fuv, fidx, 0, tangents=ftan, interleave=True),
+              mesh("ball", sp, sn, suv, sidx, 1),
+              mesh("lamp", bp, bn, buv, bidx, 2)]
+    image_json = [{"bufferView": view(data), "mimeType": "image/png", "name": name}
+                  for data, name in zip(images, ("base", "mr", "normal", "emissive", "ao"))]
+    half = np.radians(20.0) / 2
+    gltf = {
+        "asset": {"version": "2.0", "generator": "chip_smoke.write_textured_glb"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [
+            {"name": "root", "translation": [0.0, 0.05, 0.0],
+             "rotation": [0.0, float(np.sin(half)), 0.0, float(np.cos(half))],
+             "scale": [1.1, 1.1, 1.1], "children": [1, 2, 3]},
+            {"name": "floor", "mesh": 0,
+             "matrix": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0.0, -0.05, 0.0, 1]},
+            {"name": "ball", "mesh": 1, "translation": [0.3, 0.8, 0.0],
+             "scale": [1.0, 1.2, 1.0]},
+            {"name": "lamp", "mesh": 2, "translation": [-0.5, 2.6, 0.3],
+             "rotation": [1.0, 0.0, 0.0, 0.0]},
+        ],
+        "meshes": meshes,
+        "materials": [
+            {"name": "floor", "pbrMetallicRoughness": {
+                "baseColorFactor": [0.9, 0.9, 0.9, 1.0], "metallicFactor": 0.3,
+                "roughnessFactor": 0.9, "baseColorTexture": {"index": 0},
+                "metallicRoughnessTexture": {"index": 1}},
+             "normalTexture": {"index": 2}, "occlusionTexture": {"index": 4}},
+            {"name": "ball", "pbrMetallicRoughness": {
+                "baseColorFactor": [1.0, 0.9, 0.8, 1.0], "metallicFactor": 0.6,
+                "roughnessFactor": 0.4, "baseColorTexture": {"index": 0},
+                "metallicRoughnessTexture": {"index": 1}},
+             "normalTexture": {"index": 2}},
+            {"name": "lamp", "pbrMetallicRoughness": {"baseColorFactor": [0, 0, 0, 1]},
+             "emissiveFactor": [8.0, 7.0, 6.0], "emissiveTexture": {"index": 3}},
+        ],
+        "textures": [{"source": k} for k in range(5)],
+        "images": image_json,
+        "accessors": accessors,
+        "bufferViews": views,
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    text = json.dumps(gltf).encode()
+    text += b" " * (-len(text) % 4)
+    blob.extend(b"\0" * (-len(blob) % 4))
+    body = (struct.pack("<II", len(text), 0x4E4F534A) + text
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+    return path
+
+
 def phase_imports():
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "jaxlib", "mc_path_tracer_tpu")
@@ -791,7 +1295,8 @@ def phase_imports():
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--png", default="out/config2.png",
-                        help="config2's frames go to <stem>_auto.png and <stem>_dense.png")
+                        help="config2's frames go to <stem>_auto.png and <stem>_dense.png; "
+                        "the other phases write their PNGs and the test GLB beside them")
     args = parser.parse_args()
     png = Path(args.png)
     name_limit = phase_device()
@@ -802,13 +1307,20 @@ def main() -> int:
     later = []   # device timings, taken after the frames
     stats = phase_kernel_check(sd, device, later, name_limit)
     bench_launches, film = phase_render(sd, device, name_limit)
-    phase_route_parity(sd, device)
+    phase_route_parity(sd)
     stats["tonemap"] = phase_tonemap(film, later, name_limit)
     del sd, film
     sd2, cam2, cfg2 = config2_scene(device)
     stats.update(phase_dense(sd2, cam2, device, later, name_limit))
     area_launches = phase_area(sd2, cam2, cfg2, device, png, name_limit)
     phase_area_scene(device)
+    out_dir = png.parent
+    scenes = phase_configs(device, out_dir, name_limit)
+    phase_golden(scenes, device)
+    phase_gltf(device, out_dir, name_limit)
+    phase_reuse(sd2, cam2, cfg2, area_launches["auto"], scenes, device, name_limit)
+    phase_progressive(scenes, device, name_limit)
+    del scenes, sd2
     phase_stream(device, later, name_limit)
     phase_device_times(later, name_limit)
     phase_imports()

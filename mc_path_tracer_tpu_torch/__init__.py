@@ -16,10 +16,11 @@ Layout:
              versions and launch counters.
   csrc/      CUDA sources and the native BVH builder (C++).
   models/    camera, film, materials, lights, mesh primitives, scene,
-             integrator.
-  utils/     host code: the native builder's binding, image IO, mesh
-             attributes.
-  configs.py the verification configs ported so far.
+             integrator, engine (progressive session).
+  utils/     host code: the native builder's binding, image IO (PNG
+             decoding without PIL), mesh attributes, glTF loading, the
+             texture atlas, film checkpoints.
+  configs.py the five verification configs.
 
 This package imports torch and numpy, never jax and nothing of the JAX
 package.

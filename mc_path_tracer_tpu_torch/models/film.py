@@ -1,7 +1,9 @@
-"""Film: accumulated radiance and per-pixel sample counts, and the traversal
-tile order (port of mc_path_tracer_tpu/models/film.py).  `to_uint8` and
-`save_png` of a film on the card go through the tone-map kernel
-(ops/kernels/tonemap.py); a film on the CPU through its plain version."""
+"""Film: accumulated radiance and per-pixel sample counts, the progressive
+tile schedule and the traversal tile order (port of
+mc_path_tracer_tpu/models/film.py).  A Film is a snapshot: progressive
+rendering yields a new one per step.  `to_uint8` and `save_png` of a film
+on the card go through the tone-map kernel (ops/kernels/tonemap.py); a film
+on the CPU through its plain version."""
 
 from __future__ import annotations
 
@@ -10,10 +12,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops import tonemap
 from mc_path_tracer_tpu_torch.ops.kernels import tonemap as tonemap_kernel
 from mc_path_tracer_tpu_torch.utils.image import write_png
 
+DEFAULT_TILE = 256  # progressive tile edge
 
 class Film(NamedTuple):
     ld: torch.Tensor       # [H, W, 3] accumulated radiance
@@ -40,6 +44,20 @@ class Film(NamedTuple):
     def radiance_mean(self) -> torch.Tensor:
         """Linear HDR image (Ld / samples)."""
         return self.ld / torch.clamp(self.samples, min=1.0)[..., None]
+
+
+def make_film(width: int, height: int, device=DEFAULT_DEVICE) -> Film:
+    device = resolve_device(device)
+    return Film(ld=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
+                samples=torch.zeros((height, width), dtype=torch.float32, device=device))
+
+
+def tile_grid(width: int, height: int, tile: int = DEFAULT_TILE):
+    """Round-robin progressive tile schedule: (x0, y0, w, h) covering the
+    film row by row, edge tiles clipped."""
+    for y0 in range(0, height, tile):
+        for x0 in range(0, width, tile):
+            yield (x0, y0, min(tile, width - x0), min(tile, height - y0))
 
 
 # traversal-block tile shape: 32x16 = 512 pixels, so consecutive rays of a

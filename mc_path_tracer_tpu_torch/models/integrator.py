@@ -2,20 +2,26 @@
 mc_path_tracer_tpu/models/integrator.py, forward pass).
 
 Each bounce is straight-line masked tensor code over the block's rays; dead
-lanes are predicated off with `where`.  Per bounce the integrator makes one
-closest-hit dispatch (the extension ray) and one fused any-hit dispatch of
-2R rays (the light sample's shadow ray and the BRDF sample's visibility
-ray).  With an area light it makes, per NEE bounce, one R-lane bounded
-any-hit (the shadow ray, t_max short of the sampled light point) and one
-R-lane closest hit (the BRDF ray: did it reach the emitter?) instead of the
-fused 2R any-hit.  Everything between the dispatches is plain PyTorch.
+lanes are predicated off with `where`.  Per bounce the default two-sample
+estimator makes one closest-hit dispatch (the extension ray) and one fused
+any-hit dispatch of 2R rays (the light sample's shadow ray and the BRDF
+sample's visibility ray).  With an area light it makes, per NEE bounce, one
+R-lane bounded any-hit (the shadow ray, t_max short of the sampled light
+point) and one R-lane closest hit (the BRDF ray: did it reach the emitter?)
+instead of the fused 2R any-hit.  With `reuse_brdf_ray` one mixture sample
+serves both the BRDF-sample estimator and the continuation, so the
+extension hit answers the visibility query: one R-lane shadow any-hit and
+one closest hit per bounce, and the last NEE bounce alone pays dedicated
+visibility lanes.  Everything between the dispatches is plain PyTorch.
 
 Routes (`resolve_accel`, a pure function of triangle count, device and
 RenderConfig.accel): "auto" on a CUDA scene of at most
 DENSE_ACCEL_MAX_TRIS triangles takes the dense kernel (csrc/dense.cu),
 any larger one the traversal kernel (csrc/traversal.cu); "dense" forces
-the dense kernel; "brute" calls the plain brute-force version.  On CPU
-tensors every kernel wrapper runs that plain version.
+the dense kernel; "pallas", "wide" and "bvh", the JAX package's BVH
+routes, all take the traversal kernel; "brute" calls the plain
+brute-force version.  On CPU tensors every kernel wrapper runs that plain
+version.
 
 Estimator (the reference's wavefront kernels, as in the JAX package):
 environment radiance on primary miss, emission on a primary hit of an
@@ -23,19 +29,23 @@ emissive triangle (scenes with an area light); next-event estimation at hits
 1..max_depth-1 combining a light sample and a BRDF sample with the power
 heuristic (delta lights take the light sample at full weight); 50/50
 specular/diffuse continuation; Russian roulette from bounce `rr_start`
-with q = max(0.05, 1 - beta.y) and survivors divided by 1 - q.
-`reference_quirks=True` reproduces the reference's bugs (env added once
-per light, no selection compensation, no RR reweight, halved delta
-lights).  All randomness is threefry keyed by pixel id (ops/rng.py), so a
-render matches the JAX package's pixel by pixel.
+with q = max(0.05, 1 - beta.y) and survivors divided by 1 - q (under
+`reuse_brdf_ray`, before the shared trace).  Materials are textured
+through the scene's atlas (albedo, metallic-roughness, emission and
+tangent-space normal maps).  `reference_quirks=True` reproduces the
+reference's bugs (env added once per light, no selection compensation, no
+RR reweight, halved delta lights) and ignores `reuse_brdf_ray`.  All
+randomness is threefry keyed by pixel id (ops/rng.py), so a render matches
+the JAX package's pixel by pixel.
+
+`render` draws sample s of a frame with key fold_in(key, s);
+`render_progressive` draws pass p's samples with fold_in(key, p) through
+`_tile_pass`, one film snapshot per (pass, tile), as the JAX package does.
 
 Sampled directions, pdfs, MIS weights and intersections are detached
 (`stop_gradient` in the JAX package); gradients are not ported yet.
-
-Not ported yet (ROADMAP Queue 1), and refused with NotImplementedError:
-reuse_brdf_ray=True, textures (scene build), and accel values other than
-"auto", "dense" and "brute".  `sort_rays` is accepted but not applied:
-sorting only permutes kernel lanes and never changes the result.
+`sort_rays` is accepted but not applied: sorting only permutes kernel
+lanes and never changes the result.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ import torch
 from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.models import camera as camera_mod
 from mc_path_tracer_tpu_torch.models import lights as lights_mod
-from mc_path_tracer_tpu_torch.models.film import Film, tile_order
+from mc_path_tracer_tpu_torch.models.film import Film, make_film, tile_grid, tile_order
 from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import brdf, rng
 from mc_path_tracer_tpu_torch.ops.intersect import Hit, finish_closest, pack_rays
@@ -68,7 +78,9 @@ PIXEL_CHUNK = 65536
 # scenes at or below this triangle count skip the BVH on the card: the dense
 # kernel tests every triangle (the JAX package's _resolve_accel threshold)
 DENSE_ACCEL_MAX_TRIS = 2048
-ACCELS = ("auto", "dense", "brute")
+ACCELS = ("auto", "pallas", "dense", "wide", "bvh", "brute")
+# the JAX package's BVH routes: on the card all take the traversal kernel
+BVH_ACCELS = ("pallas", "wide", "bvh")
 
 
 @dataclass(frozen=True)
@@ -77,7 +89,7 @@ class RenderConfig:
 
     spp: int = DEFAULT_SPP
     max_depth: int = DEFAULT_MAX_DEPTH
-    accel: str = "auto"            # "auto" | "dense" | "brute" (resolve_accel)
+    accel: str = "auto"            # one of ACCELS (resolve_accel)
     # JAX parity only, no effect: the JAX traversal unrolls this many leaf
     # slots, while the port's traversal reads each leaf's own triangle count
     # (the tree's leaf size is Scene.max_leaf)
@@ -87,7 +99,10 @@ class RenderConfig:
     rr_start: int = RR_START
     # no effect yet: sorting only permutes kernel lanes (ROADMAP Queue 1)
     sort_rays: bool = True
-    reuse_brdf_ray: bool = False   # not ported yet
+    # one mixture sample shared by the BRDF-sample estimator and the
+    # continuation (about 1.45x per-sample variance on glossy surfaces in
+    # the JAX package's measurement; ignored under reference_quirks)
+    reuse_brdf_ray: bool = False
     mis_mode: str = "mis"          # "mis" | "light" | "brdf"
     env_importance: bool = True
 
@@ -97,12 +112,7 @@ def _check_supported(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown mis_mode {cfg.mis_mode!r} "
                          "(expected 'mis', 'light' or 'brdf')")
     if cfg.accel not in ACCELS:
-        raise NotImplementedError(
-            f"accel={cfg.accel!r} is not ported yet (ROADMAP Queue 2); "
-            f"use one of {ACCELS}")
-    if cfg.reuse_brdf_ray and not cfg.reference_quirks:
-        raise NotImplementedError(
-            "reuse_brdf_ray=True is not ported yet: ROADMAP Queue 1, reuse_brdf_ray")
+        raise ValueError(f"unknown accel {cfg.accel!r} (expected one of {ACCELS})")
 
 
 def _detach(h: Hit) -> Hit:
@@ -111,11 +121,14 @@ def _detach(h: Hit) -> Hit:
 
 def resolve_accel(num_triangles: int, device, accel: str) -> str:
     """The intersection route: "bvh" (traversal kernel), "dense" (dense
-    kernel) or "brute" (plain version).  "auto" takes the dense kernel for
-    CUDA scenes of at most DENSE_ACCEL_MAX_TRIS triangles, as the JAX
-    package's _resolve_accel does on its accelerator, else the traversal."""
+    kernel) or "brute" (plain version).  "pallas", "wide" and "bvh" take
+    the traversal; "auto" takes the dense kernel for CUDA scenes of at most
+    DENSE_ACCEL_MAX_TRIS triangles, as the JAX package's _resolve_accel
+    does on its accelerator, else the traversal."""
     if accel in ("dense", "brute"):
         return accel
+    if accel in BVH_ACCELS:
+        return "bvh"
     if accel != "auto":
         raise ValueError(f"unknown accel {accel!r}")
     on_card = torch.device(device).type == "cuda"
@@ -152,10 +165,12 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
     if pid is None:
         pid = torch.arange(num_rays, dtype=torch.int32, device=ray_o.device)
     quirks = cfg.reference_quirks
+    reuse = cfg.reuse_brdf_ray and not quirks
     route = resolve_accel(scene.tris.num_triangles, ray_o.device, cfg.accel)
     lights = lights_mod.with_packed(scene.lights)
     n_lights = lights_mod.num_lights(lights)
     aid = lights_mod.area_light_id(lights)  # -1 when there is no area light
+    atlas = scene.atlas
 
     l_out = torch.zeros((num_rays, 3), dtype=torch.float32, device=ray_o.device)
     beta = torch.ones((num_rays, 3), dtype=torch.float32, device=ray_o.device)
@@ -169,7 +184,7 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
     l_out = l_out + torch.where(isect.hit[..., None], 0.0, bg * bg_scale)
     # emitters seen directly by the camera
     if aid >= 0:
-        prim_emit = scene.materials.emission(isect.material_id)
+        prim_emit = scene.materials.emission(isect.material_id, isect.uv, atlas)
         l_out = l_out + torch.where(isect.hit[..., None], prim_emit, 0.0)
 
     alive = isect.hit
@@ -179,8 +194,9 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
     for bounce in range(1, cfg.max_depth):
         u = rng.pixel_uniforms(rng.fold_in(key, bounce), pid, 10).detach()
         pos = isect.position
-        mat = scene.materials.gather(isect.material_id)
-        n = scene.materials.perturb_normal(isect.material_id, isect.normal)
+        mat = scene.materials.gather(isect.material_id, isect.uv, atlas)
+        n = scene.materials.perturb_normal(isect.material_id, isect.uv, atlas,
+                                           isect.normal, isect.tangent, isect.bitangent)
 
         # ---- light selection and the light-sample estimator ----
         l_id = torch.clamp((u[:, 0] * n_lights).to(torch.int64), max=n_lights - 1)
@@ -193,7 +209,7 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
         shadow_tmax = None
         if aid >= 0:
             # the area sample reads u[:, 1:4]: its third uniform is u[:, 3],
-            # which also picks the BRDF sample's lobe below, as in the JAX
+            # which also picks the two-sample BRDF lobe below, as in the JAX
             # package (a correlation of two unbiased estimators, kept for
             # pixel parity)
             is_area = l_id == aid
@@ -219,25 +235,63 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
         )
 
         # ---- brdf-sample estimator, non-delta lights ----
-        wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 3], u[:, 4:6]).detach()
+        # reuse: the continuation sample ws is the BRDF sample, traced from
+        # the extension origin; its hit becomes the next isect unless this
+        # is the last NEE bounce
+        last = bounce == cfg.max_depth - 1
+        shared = reuse and not last
+        isect_next = None
+        if reuse:
+            wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
+            vis_o = pos + n * EXT_OFFSET
+        else:
+            wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 3], u[:, 4:6]).detach()
+            vis_o = pos + wb * VIS_OFFSET
         f_at_wb = brdf.mixture_f(mat, n, wb, wo)
         pdf_at_wb = brdf.mixture_pdf(mat, n, wb, wo).detach()
-
-        vis_o = pos + wb * VIS_OFFSET
+        if shared:
+            # continuation throughput and Russian roulette before the shared
+            # trace: killed lanes skip it, survivors carry 1 / (1 - q)
+            cont_ok = (pdf_at_wb > 0.0) & (f_at_wb.detach() != 0.0).any(dim=-1)
+            beta_next = torch.where(
+                alive[..., None],
+                beta * f_at_wb / torch.clamp(pdf_at_wb, min=1e-20)[..., None],
+                beta,
+            )
+            surv = alive & cont_ok
+            if bounce >= cfg.rr_start:
+                q = torch.clamp(1.0 - beta_next[:, 1].detach(), min=RR_MIN_Q)
+                surv = surv & ~(u[:, 9] < q)
+                beta_next = beta_next / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
+            ext_mask = surv
+        else:
+            surv = alive
+            ext_mask = alive & ~delta
         if aid >= 0:
             # the bounded shadow any-hit, then the BRDF ray's closest hit:
             # did it reach the emitter?  (Env visibility is its miss.)
             visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask,
                                  t_max=shadow_tmax) & alive
-            hit_b = _intersect(scene, route, vis_o, wb, mask=alive & ~delta)
+            hit_b = _intersect(scene, route, vis_o, wb, mask=ext_mask)
+            if shared:
+                isect_next = hit_b
             li_hit, pdf_sa_hit, on_light = lights_mod.area_eval_hit(
                 lights.area, scene.tris, hit_b, vis_o)
-            vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & alive
+            vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & surv
             li_brdf_raw = torch.where(
                 is_area[..., None], li_hit, lights_mod.radiance(lights, l_id, wb))
             pdf_l_at_wb_raw = torch.where(
                 is_area, pdf_sa_hit.detach(),
                 lights_mod.pdf(lights, l_id, wb, env_importance=cfg.env_importance))
+        elif shared:
+            # the R-lane shadow any-hit; the extension's closest hit doubles
+            # as the visibility query (a miss sees the environment along wb)
+            visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask) & alive
+            isect_next = _intersect(scene, route, vis_o, wb, mask=ext_mask)
+            vis2 = ~isect_next.hit & ~delta & surv
+            li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
+            pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
+                                             env_importance=cfg.env_importance)
         else:
             # one fused any-hit dispatch for the shadow and visibility rays
             occ2 = _occluded(
@@ -270,39 +324,58 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
             f_light * li_light * (w1 / torch.clamp(pdf_light, min=1e-20))[..., None],
             0.0,
         )
-        ld = ld + torch.where(
-            (vis2 & (pdf_brdf > 0.0) & (w2 > 0.0))[..., None],
-            f_brdf * li_brdf * (w2 / torch.clamp(pdf_brdf, min=1e-20))[..., None],
-            0.0,
-        )
+        ld_brdf = None
+        if shared:
+            # beta_next already carries f / pdf and the RR reweight; vis2
+            # implies survival and pdf > 0
+            ld_brdf = torch.where((vis2 & (w2 > 0.0))[..., None],
+                                  beta_next * li_brdf * w2[..., None], 0.0)
+        else:
+            ld = ld + torch.where(
+                (vis2 & (pdf_brdf > 0.0) & (w2 > 0.0))[..., None],
+                f_brdf * li_brdf * (w2 / torch.clamp(pdf_brdf, min=1e-20))[..., None],
+                0.0,
+            )
         if not quirks:
             ld = ld * float(n_lights)  # uniform-selection compensation
+            if ld_brdf is not None:
+                ld_brdf = ld_brdf * float(n_lights)
         l_out = l_out + torch.where(alive[..., None], beta * ld, 0.0)
+        if ld_brdf is not None:
+            l_out = l_out + ld_brdf
 
         # ---- path continuation sample ----
-        ws = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
-        pdf_s = brdf.mixture_pdf(mat, n, ws, wo).detach()
-        f_s = brdf.mixture_f(mat, n, ws, wo)
-        cont_ok = (pdf_s > 0.0) & (f_s.detach() != 0.0).any(dim=-1)
-        beta = torch.where(
-            alive[..., None],
-            beta * f_s / torch.clamp(pdf_s, min=1e-20)[..., None],
-            beta,
-        )
-        alive = alive & cont_ok
+        if shared:
+            ws, beta, alive = wb, beta_next, surv
+        else:
+            if reuse:
+                ws, pdf_s, f_s = wb, pdf_at_wb, f_at_wb
+            else:
+                ws = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
+                pdf_s = brdf.mixture_pdf(mat, n, ws, wo).detach()
+                f_s = brdf.mixture_f(mat, n, ws, wo)
+            cont_ok = (pdf_s > 0.0) & (f_s.detach() != 0.0).any(dim=-1)
+            beta = torch.where(
+                alive[..., None],
+                beta * f_s / torch.clamp(pdf_s, min=1e-20)[..., None],
+                beta,
+            )
+            alive = alive & cont_ok
 
-        # ---- Russian roulette ----
-        if bounce >= cfg.rr_start:
-            q = torch.clamp(1.0 - beta[:, 1].detach(), min=RR_MIN_Q)
-            alive = alive & ~(u[:, 9] < q)
-            if not quirks:
-                beta = beta / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
+            # ---- Russian roulette ----
+            if bounce >= cfg.rr_start:
+                q = torch.clamp(1.0 - beta[:, 1].detach(), min=RR_MIN_Q)
+                alive = alive & ~(u[:, 9] < q)
+                if not quirks:
+                    beta = beta / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
 
         # ---- extension, only if another NEE bounce follows ----
-        if bounce < cfg.max_depth - 1:
+        if not last:
             ray_d = ws
             wo = -ray_d
-            isect = _intersect(scene, route, pos + n * EXT_OFFSET, ray_d, mask=alive)
+            if isect_next is None:
+                isect_next = _intersect(scene, route, pos + n * EXT_OFFSET, ray_d, mask=alive)
+            isect = isect_next
             alive = alive & isect.hit
 
     return l_out
@@ -376,3 +449,50 @@ def render(scene, camera, width: int, height: int,
     img[torch.from_numpy(pyi).long().to(device), torch.from_numpy(pxi).long().to(device)] = acc
     return Film(ld=img, samples=torch.full((height, width), float(cfg.spp),
                                            dtype=torch.float32, device=device))
+
+
+def _tile_pass(scene: SceneData, cam, x0: int, y0: int, key: torch.Tensor, tw: int,
+               th: int, width: int, height: int, cfg: RenderConfig,
+               spp: int) -> torch.Tensor:
+    """One progressive pass over the tile (x0, y0, tw, th): radiance summed
+    over `spp` samples, [th, tw, 3]."""
+    device = scene.tris.v0.device
+    ys, xs = torch.meshgrid(torch.arange(th, device=device),
+                            torch.arange(tw, device=device), indexing="ij")
+    px = (xs.reshape(-1) + x0).to(torch.float32)
+    py = (ys.reshape(-1) + y0).to(torch.float32)
+    acc = render_tile_radiance(scene, cam, width, height, px, py, key, cfg, spp)
+    return acc.reshape(th, tw, 3)
+
+
+def render_progressive(scene, camera, width: int, height: int,
+                       cfg: RenderConfig = RenderConfig(), key: torch.Tensor | None = None,
+                       tile: int = 256, spp_per_pass: int = 1, device=DEFAULT_DEVICE):
+    """Progressive generator: yields a new Film after each (pass, tile) step,
+    one tile per step in round-robin order.  Pass p's samples are keyed by
+    fold_in(key, p), so the final film equals the sum of `render` frames of
+    spp_per_pass samples with keys fold_in(key, p).  Re-invoking after a
+    scene edit restarts accumulation."""
+    _check_supported(cfg)
+    if isinstance(scene, SceneData):
+        scene_data = scene
+        device = scene_data.tris.v0.device
+    else:
+        device = resolve_device(device)
+        scene_data = scene.build(device)
+    if key is None:
+        key = rng.prng_key(0)
+    cam = camera_params(camera, width, height, device)
+    film = make_film(width, height, device)
+    passes = (cfg.spp + spp_per_pass - 1) // spp_per_pass
+    for p in range(passes):
+        kp = rng.fold_in(key, p)
+        for x0, y0, tw, th in tile_grid(width, height, tile):
+            # noise is keyed by pixel id: tiles need no fold of their own
+            acc = _tile_pass(scene_data, cam, x0, y0, kp, tw, th, width, height, cfg,
+                             spp_per_pass)
+            ld, samples = film.ld.clone(), film.samples.clone()
+            ld[y0 : y0 + th, x0 : x0 + tw] += acc
+            samples[y0 : y0 + th, x0 : x0 + tw] += float(spp_per_pass)
+            film = Film(ld=ld, samples=samples)
+            yield film

@@ -12,10 +12,13 @@ per-ray light ids select behaviour with `where`s.
     uniform point on it, one-sided emission, solid-angle
     pdf = dist^2 / (cos_light * total_area).  `sample_area` and
     `area_eval_hit` return its terms; the integrator merges them in.
+  - PointLight: a host-only stub that `Scene.add_point_light` stores and
+    that never illuminates, as in the JAX package.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -59,6 +62,17 @@ class LightSet(NamedTuple):
     env: EnvLight
     directional: DirectionalLights
     area: AreaLights
+
+
+@dataclass
+class PointLight:
+    """Host-only parity stub: stored by `Scene.add_point_light` and never
+    illuminates (the reference's PointLight has no device implementation,
+    and the JAX package keeps it as a stub too)."""
+
+    position: np.ndarray
+    color: np.ndarray
+    ls: float = 1.0
 
 
 def _dev(a, device):

@@ -11,12 +11,16 @@ tensors move to the device once, at the end.
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
 from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.intersect import BVHArrays, TriangleSoA
 from mc_path_tracer_tpu_torch.utils import native
+
+log = logging.getLogger(__name__)
 
 _TRI_FIELDS = (
     "v0", "e1", "e2", "n0", "n1", "n2",
@@ -206,8 +210,14 @@ def build_bvh(tris: dict[str, np.ndarray], max_leaf: int = 4,
     result = native.bvh_build_native(bmin, bmax, max_leaf=max_leaf, method=method)
     builder = "native"
     if result is None:
+        # kept for parity with the JAX package, which falls back the same way
+        log.warning("native BVH builder unavailable (%s did not build or load): "
+                    "%d triangles go to the numpy median builder, whatever `method`",
+                    native.library_path().name, v0.shape[0])
         result = _numpy_build(bmin, bmax, max_leaf)
         builder = "numpy"
+    log.info("BVH over %d triangles built by the %s builder (method %d, max_leaf %d)",
+             v0.shape[0], builder, method, max_leaf)
     nb_min, nb_max, first, count, skip, order = result
 
     names = list(_TRI_FIELDS)

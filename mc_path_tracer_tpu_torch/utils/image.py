@@ -1,10 +1,11 @@
-"""Image IO: Radiance .hdr loading and PNG output (the port's copy of
-mc_path_tracer_tpu/utils/image.py's `load_hdr`, `_load_radiance_hdr` and
-`write_png`).
+"""Image IO: Radiance .hdr loading, PNG output and PNG decoding (the port's
+copy of mc_path_tracer_tpu/utils/image.py's `load_hdr`, `_load_radiance_hdr`
+and `write_png`, and `read_png` for the glTF textures that the JAX package
+decodes with PIL).
 
-The PNG writer encodes with the standard library's zlib, so writing a frame
-needs no imaging package; only `load_hdr` of a non-.hdr file imports
-imageio.
+PNG encoding and decoding use the standard library's zlib, so writing a
+frame or loading a textured glTF scene needs no imaging package; only
+`load_hdr` of a non-.hdr file imports imageio.
 """
 
 from __future__ import annotations
@@ -104,3 +105,103 @@ def write_png(path: str, img: np.ndarray) -> None:
     ])
     with open(path, "wb") as f:
         f.write(png)
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> samples per pixel (0 grey, 2 RGB, 3 palette, 4 grey+alpha,
+# 6 RGBA)
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+UNDECODED = "not decoded by the port yet (ROADMAP Queue 1, image formats)"
+
+
+def read_png(data: bytes, name: str = "image") -> np.ndarray:
+    """Decode a PNG to uint8 [H, W, C]: C = 1 grey, 2 grey + alpha, 3 RGB
+    or palette (expanded through PLTE), 4 RGBA.  Handles non-interlaced
+    images of 8 bits per sample (1, 2 and 4 bits for grey and palette) and
+    filter types 0-4; interlaced and 16-bit images raise ValueError naming
+    `name`."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{name}: not a PNG image; {UNDECODED}")
+    pos, header, palette, idat = 8, None, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError(f"{name}: PNG without IHDR or IDAT")
+    w, h, depth, ctype, compression, filt, interlace = header
+    if ctype not in _PNG_CHANNELS or compression != 0 or filt != 0:
+        raise ValueError(f"{name}: malformed PNG header {header}")
+    if interlace != 0:
+        raise ValueError(f"{name}: interlaced PNG {UNDECODED}")
+    if depth != 8 and not (ctype in (0, 3) and depth in (1, 2, 4)):
+        raise ValueError(f"{name}: {depth}-bit PNG {UNDECODED}")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without PLTE")
+    channels = _PNG_CHANNELS[ctype]
+    bpp = max(1, depth * channels // 8)          # filter unit in bytes
+    stride = (w * channels * depth + 7) // 8     # bytes per row
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < h * (stride + 1):
+        raise ValueError(f"{name}: PNG data ends early")
+    rows = raw[: h * (stride + 1)].reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        out[y] = _unfilter(int(rows[y, 0]), rows[y, 1:], prior, bpp, name)
+        prior = out[y]
+    if depth < 8:
+        bits = np.unpackbits(out, axis=1).reshape(h, -1, depth)[:, :w]
+        out = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+            axis=-1, dtype=np.uint8)
+        if ctype == 0:   # scale grey levels to 8 bits
+            out = (out.astype(np.uint32) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+    img = out.reshape(h, w, channels)
+    if ctype == 3:
+        if int(img.max(initial=0)) >= palette.shape[0]:
+            raise ValueError(f"{name}: palette index out of range")
+        img = palette[img[..., 0]]
+    return np.ascontiguousarray(img)
+
+
+def _unfilter(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int,
+              name: str) -> np.ndarray:
+    """One reconstructed PNG scanline.  None, Up and Sub are vectorised
+    (Sub is a running sum modulo 256 per byte lane); Average and Paeth
+    depend on the byte just reconstructed and run byte by byte."""
+    if kind == 0:
+        return line
+    if kind == 2:
+        return line + prior
+    if kind == 1:
+        pad = (-line.size) % bpp
+        lanes = np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(-1, bpp)
+        return np.cumsum(lanes, axis=0, dtype=np.uint8).reshape(-1)[: line.size]
+    if kind not in (3, 4):
+        raise ValueError(f"{name}: unknown PNG filter type {kind}")
+    cur = bytearray(line.tobytes())
+    up = prior.tobytes()
+    if kind == 3:
+        for i in range(len(cur)):
+            left = cur[i - bpp] if i >= bpp else 0
+            cur[i] = (cur[i] + ((left + up[i]) >> 1)) & 0xFF
+    else:
+        for i in range(len(cur)):
+            if i >= bpp:
+                a, c = cur[i - bpp], up[i - bpp]
+            else:
+                a = c = 0
+            b = up[i]
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            cur[i] = (cur[i] + pred) & 0xFF
+    return np.frombuffer(bytes(cur), np.uint8)

@@ -148,6 +148,9 @@ def test_dense_wrapper_rejects_bad_arguments(fn, bad):
     (48002, "cuda", "dense", "dense"),
     (4, "cuda", "brute", "brute"),
     (4, "cpu", "dense", "dense"),
+    (4, "cuda", "pallas", "bvh"),
+    (4, "cuda", "wide", "bvh"),
+    (4, "cpu", "bvh", "bvh"),
 ])
 def test_resolve_accel(n_tris, device, accel, route):
     """auto takes the dense kernel on a CUDA scene of at most
@@ -158,8 +161,10 @@ def test_resolve_accel(n_tris, device, accel, route):
 
 
 def test_resolve_accel_rejects_unknown():
+    """"pallas", "wide" and "bvh" are routes now (the traversal kernel); a
+    name the JAX package does not know is refused."""
     with pytest.raises(ValueError):
-        resolve_accel(4, torch.device("cpu"), "pallas")
+        resolve_accel(4, torch.device("cpu"), "octree")
 
 
 def test_render_dense_route_on_cpu_equals_auto():

@@ -20,6 +20,7 @@ from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera as TCam
 from mc_path_tracer_tpu_torch.models.scene import Scene as TScene
 from mc_path_tracer_tpu_torch.ops import rng as trng
 from mc_path_tracer_tpu_torch.ops.kernels import traversal
+from tests.test_torch_arealight import one_thread  # noqa: F401  (fixture)
 from tests.test_torch_scene import small_scene
 
 W, H, SPP, DEPTH, SEED = 24, 16, 2, 5, 3
@@ -37,12 +38,12 @@ def render_both(spp=SPP, depth=DEPTH, **cfg):
     return out, ref
 
 
-def assert_images_agree(out, ref):
+def assert_images_agree(out, ref, size=(H, W), share=0.99):
     a, b = out.ld.numpy(), np.asarray(ref.ld)
-    assert a.shape == b.shape == (H, W, 3)
+    assert a.shape == b.shape == (*size, 3)
     assert np.isfinite(a).all()
     close = np.isclose(a, b, rtol=1e-4, atol=1e-5).all(axis=-1)
-    assert close.mean() >= 0.99, (close.mean(), np.abs(a - b).max())
+    assert close.mean() >= share, (close.mean(), np.abs(a - b).max())
     assert abs(a.mean() - b.mean()) <= 1e-4 * abs(b.mean())
     np.testing.assert_array_equal(out.samples.numpy(), np.asarray(ref.samples))
 
@@ -80,7 +81,20 @@ def test_render_reference_quirks_matches_jax():
 @pytest.mark.parametrize("cfg", [
     dict(reuse_brdf_ray=True), dict(accel="pallas"), dict(accel="wide"),
 ])
-def test_unported_options_are_refused(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tint.render(small_scene(TScene), TCam(**CAM), 4, 4, tint.RenderConfig(spp=1, **cfg),
-                    device="cpu")
+def test_unported_options_are_refused(cfg, default_render, one_thread):
+    """The options the first slices refused now render, each against the
+    JAX accel="brute" image.  reuse_brdf_ray runs at 1 spp and depth 3 with
+    rr_start=1, so Russian roulette acts before the shared trace of the
+    first bounce and the last bounce takes the dedicated visibility lanes;
+    "pallas" and "wide" are routes (the traversal's plain version on the
+    CPU) and must give the default render's image."""
+    if cfg.get("reuse_brdf_ray"):
+        out, ref = render_both(spp=1, depth=3, rr_start=1, **cfg)
+    else:
+        _, ref, _, _ = default_render
+        before = dict(traversal.LAUNCHES)
+        out = tint.render(small_scene(TScene), TCam(**CAM), W, H,
+                          tint.RenderConfig(spp=SPP, max_depth=DEPTH, **cfg),
+                          key=trng.prng_key(SEED), device="cpu")
+        assert traversal.LAUNCHES["plain"] - before["plain"] == SPP * (2 * DEPTH - 2)
+    assert_images_agree(out, ref)

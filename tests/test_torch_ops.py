@@ -218,7 +218,7 @@ def test_material_table():
     for a, b in zip(tt.gather(tid), jt.gather(jid)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(tt.emission(tid).numpy(), np.asarray(jt.emission(jid)))
-    np.testing.assert_array_equal(tt.perturb_normal(tid, tn).numpy(),
+    np.testing.assert_array_equal(tt.perturb_normal(tid, None, None, tn, None, None).numpy(),
                                   np.asarray(jt.perturb_normal(jid, None, None, jn, None, None)))
 
 

@@ -110,7 +110,18 @@ def test_emissive_mesh_builds_the_area_light():
 
 
 def test_unported_scene_features_are_refused(built):
-    ja = scene_arrays(built[0])
-    ja["materials.albedo_tex"] = np.zeros_like(ja["materials.albedo_tex"])
-    with pytest.raises(NotImplementedError, match="textures"):
-        scene_data_from_arrays(ja, device="cpu")
+    """Textures, refused by the first slices, are carried across: a JAX
+    scene whose materials point into a two-texture atlas arrives with the
+    same texture ids and atlas."""
+    textured = small_scene(JScene)
+    r = np.random.default_rng(5)
+    t0 = textured.add_texture(r.random((4, 8, 3)).astype(np.float32))
+    t1 = textured.add_texture(r.random((6, 2, 3)).astype(np.float32))
+    textured.add_material(albedo=(0.5, 0.5, 0.5), albedo_tex=t0, normal_tex=t1, mr_tex=t1)
+    ja = scene_arrays(textured.build())
+    assert (ja["materials.albedo_tex"] >= 0).any() and ja["atlas.data"].shape == (2, 6, 8, 3)
+    sd = scene_data_from_arrays(ja, device="cpu")
+    _compare(scene_arrays(sd), ja, ("materials.", "atlas."))
+    assert sd.atlas.count == 2
+    # a scene without textures arrives with an empty atlas
+    assert scene_data_from_arrays(scene_arrays(built[0]), device="cpu").atlas.count == 0

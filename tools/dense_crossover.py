@@ -38,11 +38,13 @@ SPHERES = ((2, 3), (4, 6), (8, 12), (12, 24), (16, 32), (20, 40), (24, 48), (32,
 def scene_with_sphere(rings: int, segments: int):
     from mc_path_tracer_tpu_torch import configs
     from mc_path_tracer_tpu_torch.models.primitives import uv_sphere
+    from mc_path_tracer_tpu_torch.models.scene import ObjectEntry
 
     scene, cam, _, _ = configs.config2_mis_area_light()
     p, n, uv, idx = uv_sphere(0.7, center=(1.0, 0.7, 0.3), rings=rings, segments=segments)
     sphere = 2   # config2's third mesh: the sphere
-    scene.meshes[sphere] = (p, n, uv, idx, scene.meshes[sphere][4], None)
+    scene.objects[sphere] = ObjectEntry(p, n, uv, idx, scene.objects[sphere].material_id)
+    scene.notify()
     return scene, cam
 
 
