@@ -41,6 +41,18 @@ fails unless each dispatch went through the expected kernel:
   [progressive]     render_progressive on config4 adds up to the 1-spp
                     renders of its passes; a RenderSession restarts on
                     set_transform
+  [grad]            train steps (make_train_step) at full width: config4 as
+                    configured (traversal kernel), the bench scene at
+                    1920x1080 cut to 1 spp, config2 under accel="dense" cut
+                    to 8 spp; loss, gradient L1 norms, step seconds, peak
+                    memory and the forward's and backward's launches
+  [grad-check]      the backward replays every launch of the forward; on a
+                    config4 crop the kernel route's gradients equal the
+                    plain route's; replayed equal kept-graph gradients;
+                    central differences along the bench scene's ls and
+                    config4's environment texels
+  [train]           five SGD steps on config4's albedo: the loss falls at
+                    every step
   [stream]          the traversal kernel on 1,003,520 triangles (the TPU
                     streaming kernel's contract) against plain
   [device-time]     the kernels' device time at the shapes above, under
@@ -100,6 +112,16 @@ PROG_W, PROG_H, PROG_TILE, PROG_SPP = 384, 128, 128, 4    # config4's frame
 # holds GOLDEN_MEAN_REL
 GOLDENS = ((4, "config4", (16, 16), 4, 2, 0.99),
            (5, "config5_96x54", (96, 54), 2, 3, 0.97))
+# train steps ([grad], [grad-check], [train]): the seven gradient tensors in
+# jax.tree.flatten order of (MaterialGrads, directional ls, env tex)
+GRAD_NAMES = ("albedo", "roughness", "metallic", "fresnel", "emissive", "ls", "tex")
+GRAD_BENCH_SPP = 1        # the bench frame's 4 spp cut to fit the run's time
+GRAD_AREA_SPP = 8         # config2's 64 spp cut
+GRAD_TARGET = 0.5         # mid-grey target radiance of the [grad] steps
+GRAD_CROP = 32
+GRAD_TOL = 1e-6           # gradient gap, as a share of the largest gradient
+FD_EPS, FD_RTOL = 1e-2, 1e-3
+TRAIN_STEPS, TRAIN_SPP, TRAIN_SCALE, TRAIN_LR = 5, 4, 1.2, 4.0
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "closest": ("mc_path_tracer_tpu_torch/csrc/traversal.cu",
                 "mc_path_tracer_tpu/ops/pallas/traversal_kernel.py:892"),
@@ -968,10 +990,7 @@ def _crop_parity(label, sd, cam, width, height, cfg) -> None:
     from mc_path_tracer_tpu_torch.ops import rng
 
     device = sd.tris.v0.device
-    x0, y0 = (width - CROP) // 2, (height - CROP) // 2
-    ys, xs = torch.meshgrid(torch.arange(CROP), torch.arange(CROP), indexing="ij")
-    px = (xs.reshape(-1) + x0).float().to(device)
-    py = (ys.reshape(-1) + y0).float().to(device)
+    px, py = _crop(width, height, CROP, device)
     params = camera_params(cam, width, height, device)
     out = {accel: render_tile_radiance(sd, params, width, height, px, py, rng.prng_key(0),
                                        dataclasses.replace(cfg, accel=accel))
@@ -1098,6 +1117,221 @@ def phase_progressive(scenes, device, name_limit) -> None:
             int((after.samples > 0).sum().item()) != tile * tile:
         raise AssertionError("RenderSession did not restart on set_transform")
     scene.set_transform(1, translation=(0.0, 0.0, 0.0))
+
+
+def _crop(width, height, size, device):
+    """Pixel coordinates (px, py) of the central size x size crop."""
+    x0, y0 = (width - size) // 2, (height - size) // 2
+    ys, xs = torch.meshgrid(torch.arange(size), torch.arange(size), indexing="ij")
+    return (xs.reshape(-1) + x0).float().to(device), (ys.reshape(-1) + y0).float().to(device)
+
+
+def _frame_pixels(width, height, device):
+    """Every pixel of the frame in render()'s 32x16 tile order."""
+    from mc_path_tracer_tpu_torch.models.film import tile_order
+
+    pxi, pyi = tile_order(width, height)
+    return (torch.from_numpy(pxi.astype(np.float32)).to(device),
+            torch.from_numpy(pyi.astype(np.float32)).to(device))
+
+
+def _train_step(sd, cam, width, height, px, py, cfg, target, replay=True):
+    """One make_train_step step (key 0) with the launch counts set to 0 and
+    the peak memory reset just before: {loss, grads (the 7 tensors in
+    GRAD_NAMES order), seconds, peak_gb, forward, backward launches}."""
+    from mc_path_tracer_tpu_torch import make_train_step
+    from mc_path_tracer_tpu_torch.models.integrator import camera_params
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    step = make_train_step(cfg, width, height, cfg.spp, replay=replay)
+    params = camera_params(cam, width, height, sd.tris.v0.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset()
+    t0 = time.perf_counter()
+    loss, (mat, ls, tex) = step(sd, params, px, py, target, rng.prng_key(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = _launches()
+    forward = {k: step.forward_launches[k] for k in total}
+    grads = [*mat, ls, tex]
+    if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("a train step gave a loss or a gradient that is not finite")
+    return dict(loss=loss.item(), grads=grads, seconds=seconds,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, forward=forward,
+                backward={k: total[k] - forward[k] for k in total})
+
+
+def _l1(grads) -> str:
+    return ", ".join(f"{n} {g.abs().sum().item():.6g}" for n, g in zip(GRAD_NAMES, grads))
+
+
+def _grad_gap(a, b) -> float:
+    """The largest gap between two gradient lists, each tensor's gap as a
+    share of b's largest magnitude (0 where both are 0)."""
+    gaps = [0.0]
+    for x, y in zip(a, b):
+        scale = y.abs().max().item() if y.numel() else 0.0
+        gap = (x - y).abs().max().item() if y.numel() else 0.0
+        gaps.append(gap / scale if scale > 0 else (0.0 if gap == 0 else float("inf")))
+    return max(gaps)
+
+
+def phase_grad(sd2, cam2, cfg2, device, name_limit) -> dict:
+    """Train steps at full width: config4 as configured (traversal kernel),
+    the bench scene at 1920x1080 cut to 1 spp (materials, ls and the HDR
+    environment's texels) and config2 under accel="dense" cut to 8 spp (the
+    area light's emissive gradient), each against a mid-grey target.  The
+    forward's launches must be the render's; returns the steps and scenes
+    by label."""
+    from mc_path_tracer_tpu_torch import configs
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+
+    scene4, cam4, cfg4, (w4, h4) = configs.config4_roughness_sweep()
+    sd4 = build_scene("config4", scene4, device, CONFIG_TRIS[4])
+    sdb = build_scene("bench scene", build_bench_scene(), device, 48002)
+    cases = (
+        ("config4", sd4, cam4, w4, h4, cfg4, "as configured",
+         ("closest", "anyhit"), ("albedo", "roughness", "tex")),
+        ("bench", sdb, bench_camera(), WIDTH, HEIGHT,
+         RenderConfig(spp=GRAD_BENCH_SPP, max_depth=DEPTH),
+         f"spp cut from {SPP} to {GRAD_BENCH_SPP} to fit the run",
+         ("closest", "anyhit"), ("albedo", "roughness", "metallic", "fresnel", "ls", "tex")),
+        ("config2 dense", sd2, cam2, AREA_SIZE, AREA_SIZE,
+         dataclasses.replace(cfg2, spp=GRAD_AREA_SPP, accel="dense"),
+         f"spp cut from {AREA_SPP} to {GRAD_AREA_SPP}",
+         ("dense_closest", "dense_anyhit"), ("albedo", "roughness", "emissive")),
+    )
+    out = {}
+    for label, sd, cam, w, h, cfg, cut, (c_name, a_name), reached in cases:
+        px, py = _frame_pixels(w, h, device)
+        rec = _train_step(sd, cam, w, h, px, py, cfg, torch.full((w * h, 3), GRAD_TARGET,
+                                                                  device=device))
+        log(f"[grad] {label} {w}x{h} {cfg.spp} spp depth {cfg.max_depth} ({cut}): step "
+            f"{rec['seconds']:.3f} s ({name_limit}), peak {rec['peak_gb']:.3f} GB, loss "
+            f"{rec['loss']:.6g}; gradient L1 norms: {_l1(rec['grads'])}; launches forward "
+            f"{rec['forward']}, backward {rec['backward']}")
+        if label == "config2 dense":
+            per = {c_name: 4 * cfg.spp, a_name: 2 * cfg.spp}   # as [area]
+        else:
+            per = dict.fromkeys((c_name, a_name), _blocks(w, h) * cfg.spp * (cfg.max_depth - 1))
+        _expect(f"{label} train step forward", rec["forward"], per)
+        for name in reached:
+            if rec["grads"][GRAD_NAMES.index(name)].abs().sum().item() <= 0.0:
+                raise AssertionError(f"{label}: no gradient reached {name}")
+        out[label] = (rec, sd, cam, w, h, cfg)
+    return out
+
+
+def phase_grad_check(steps: dict, device, name_limit) -> None:
+    """The gradient path's checks on the card: the backward replays every
+    kernel launch of the forward and calls no plain version; on a config4
+    crop the kernel route's gradients equal the plain route's; config4's
+    replayed step equals the same step keeping every sample's graph; and a
+    central difference of the loss matches the gradient along the bench
+    scene's directional ls and along config4's environment texels (the
+    radiance is linear in both and the loss quadratic)."""
+    from mc_path_tracer_tpu_torch.parallel.render import scene_params, with_params
+
+    for label, (rec, *_) in steps.items():
+        if rec["backward"] != rec["forward"] or rec["forward"]["plain"] != 0:
+            raise AssertionError(f"{label}: the backward did not replay the forward's "
+                                 f"launches: forward {rec['forward']}, backward {rec['backward']}")
+    log("[grad-check] every backward replayed the forward's kernel launches, no plain call")
+
+    rec4, sd4, cam4, w4, h4, cfg4 = steps["config4"]
+    px, py = _crop(w4, h4, GRAD_CROP, device)
+    target = torch.full((px.shape[0], 3), GRAD_TARGET, device=device)
+    crop_cfg = dataclasses.replace(cfg4, spp=1)
+    routes = {accel: _train_step(sd4, cam4, w4, h4, px, py,
+                                 dataclasses.replace(crop_cfg, accel=accel), target)
+              for accel in ("auto", "brute")}
+    gap = _grad_gap(routes["auto"]["grads"], routes["brute"]["grads"])
+    log(f"[grad-check] config4 {GRAD_CROP}x{GRAD_CROP} crop, 1 spp: kernel vs plain route "
+        f"gradients, largest gap {gap:.3e} of the largest gradient; losses "
+        f"{routes['auto']['loss']:.9g} / {routes['brute']['loss']:.9g}; launches "
+        f"{routes['auto']['forward']} / {routes['brute']['forward']} (forward)")
+    if gap > GRAD_TOL or routes["auto"]["forward"]["plain"] != 0 or \
+            routes["brute"]["forward"]["closest"] != 0:
+        raise AssertionError("config4: the kernel route's gradients differ from the plain route's")
+
+    # in turns: [grad]'s replayed step (the run's first train step), kept
+    # graphs, replayed again
+    px, py = _frame_pixels(w4, h4, device)
+    target = torch.full((w4 * h4, 3), GRAD_TARGET, device=device)
+    kept = _train_step(sd4, cam4, w4, h4, px, py, cfg4, target, replay=False)
+    again = _train_step(sd4, cam4, w4, h4, px, py, cfg4, target)
+    gap = max(_grad_gap(rec4["grads"], kept["grads"]), _grad_gap(again["grads"], kept["grads"]))
+    log(f"[grad-check] config4 {w4}x{h4} {cfg4.spp} spp: replayed vs kept graphs, largest gap "
+        f"{gap:.3e} of the largest gradient; peak {rec4['peak_gb']:.3f} GB replayed, "
+        f"{kept['peak_gb']:.3f} GB kept, {again['peak_gb']:.3f} GB replayed again; step "
+        f"{rec4['seconds']:.3f} s replayed (the run's first step), {kept['seconds']:.3f} s kept, "
+        f"{again['seconds']:.3f} s replayed again; backward launches {kept['backward']} kept "
+        f"({name_limit})")
+    if gap > GRAD_TOL or kept["backward"]["closest"] != 0 or kept["forward"] != rec4["forward"] \
+            or again["backward"] != rec4["backward"]:
+        raise AssertionError("config4: replayed gradients differ from kept-graph gradients")
+
+    def central_difference(label, sd, cam, w, h, cfg, field, direction):
+        """d loss / d x along `direction` of parameter `field` ("ls" or
+        "tex"), from the step's gradient and from a central difference."""
+        px, py = _crop(w, h, GRAD_CROP * 2, device)
+        target = torch.full((px.shape[0], 3), GRAD_TARGET, device=device)
+        rec = _train_step(sd, cam, w, h, px, py, cfg, target)
+        grad = (rec["grads"][GRAD_NAMES.index(field)] * direction).sum().item()
+        losses = []
+        for sign in (1.0, -1.0):
+            params = list(scene_params(sd))   # (MaterialGrads, ls, tex)
+            i = 1 if field == "ls" else 2
+            params[i] = params[i] + sign * FD_EPS * direction
+            losses.append(_train_step(with_params(sd, tuple(params)), cam, w, h, px, py, cfg,
+                                      target)["loss"])
+        fd = (losses[0] - losses[1]) / (2 * FD_EPS)
+        rel = abs(grad - fd) / abs(fd)
+        log(f"[grad-check] {label} {GRAD_CROP * 2}x{GRAD_CROP * 2} crop {cfg.spp} spp depth "
+            f"{cfg.max_depth}: d loss along {field}: gradient {grad:.9g}, central difference "
+            f"{fd:.9g} (eps {FD_EPS}), rel {rel:.3e}")
+        if not rel <= FD_RTOL:
+            raise AssertionError(f"{label}: the {field} gradient misses its finite difference")
+
+    recb, sdb, camb, wb, hb, cfgb = steps["bench"]
+    central_difference("bench", sdb, camb, wb, hb, cfgb, "ls", torch.ones_like(
+        sdb.lights.directional.ls))
+    central_difference("config4", sd4, cam4, w4, h4, dataclasses.replace(cfg4, spp=4), "tex",
+                       sd4.lights.env.tex)
+
+
+def phase_train(steps: dict, device, name_limit) -> None:
+    """TRAIN_STEPS SGD steps on config4's albedo toward the same scene and
+    key rendered with albedo scaled by TRAIN_SCALE, at 384x128 x
+    TRAIN_SPP spp x depth 3: the loss must fall at every step."""
+    from mc_path_tracer_tpu_torch.models.integrator import camera_params, render_tile_radiance
+    from mc_path_tracer_tpu_torch.ops import rng
+    from mc_path_tracer_tpu_torch.parallel.render import scene_params, with_params
+
+    _, sd4, cam4, w, h, cfg4 = steps["config4"]
+    cfg = dataclasses.replace(cfg4, spp=TRAIN_SPP)
+    px, py = _frame_pixels(w, h, device)
+    mat, ls, tex = scene_params(sd4)
+    with torch.no_grad():
+        want = with_params(sd4, (mat._replace(albedo=mat.albedo * TRAIN_SCALE), ls, tex))
+        target = render_tile_radiance(want, camera_params(cam4, w, h, device), w, h, px, py,
+                                      rng.prng_key(0), cfg) / cfg.spp
+    sd, losses, seconds = sd4, [], []
+    for _ in range(TRAIN_STEPS):
+        rec = _train_step(sd, cam4, w, h, px, py, cfg, target)
+        losses.append(rec["loss"])
+        seconds.append(rec["seconds"])
+        albedo = sd.materials.albedo - TRAIN_LR * rec["grads"][0]
+        sd = sd._replace(materials=sd.materials._replace(albedo=albedo))
+    before = [round(x, 6) for x in sd4.materials.albedo[1].tolist()]
+    after = [round(x, 6) for x in sd.materials.albedo[1].tolist()]
+    log(f"[train] config4 {w}x{h} {cfg.spp} spp depth {cfg.max_depth}, albedo toward x"
+        f"{TRAIN_SCALE}, SGD lr {TRAIN_LR}: losses {[f'{x:.9g}' for x in losses]}; seconds per "
+        f"step {[f'{x:.3f}' for x in seconds]} ({name_limit}); sphere 1 albedo {before} -> "
+        f"{after}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError("the loss did not fall at every SGD step")
 
 
 # ---------------------------------------------------------------------------
@@ -1320,7 +1554,10 @@ def main() -> int:
     phase_gltf(device, out_dir, name_limit)
     phase_reuse(sd2, cam2, cfg2, area_launches["auto"], scenes, device, name_limit)
     phase_progressive(scenes, device, name_limit)
-    del scenes, sd2
+    steps = phase_grad(sd2, cam2, cfg2, device, name_limit)
+    phase_grad_check(steps, device, name_limit)
+    phase_train(steps, device, name_limit)
+    del scenes, sd2, steps
     phase_stream(device, later, name_limit)
     phase_device_times(later, name_limit)
     phase_imports()

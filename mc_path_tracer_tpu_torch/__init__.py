@@ -16,10 +16,13 @@ Layout:
              versions and launch counters.
   csrc/      CUDA sources and the native BVH builder (C++).
   models/    camera, film, materials, lights, mesh primitives, scene,
-             integrator, engine (progressive session).
+             integrator (with per-sample path replay under autograd),
+             engine (progressive session).
+  parallel/  the inverse-rendering train step (MaterialGrads,
+             make_train_step); multi-device rendering is not ported yet.
   utils/     host code: the native builder's binding, image IO (PNG
              decoding without PIL), mesh attributes, glTF loading, the
-             texture atlas, film checkpoints.
+             texture atlas, film and parameter checkpoints.
   configs.py the five verification configs.
 
 This package imports torch and numpy, never jax and nothing of the JAX
@@ -34,6 +37,7 @@ _LAZY = {
     "Scene": ("mc_path_tracer_tpu_torch.models.scene", "Scene"),
     "RenderConfig": ("mc_path_tracer_tpu_torch.models.integrator", "RenderConfig"),
     "render": ("mc_path_tracer_tpu_torch.models.integrator", "render"),
+    "make_train_step": ("mc_path_tracer_tpu_torch.parallel.render", "make_train_step"),
 }
 
 __all__ = [*_LAZY, "__version__"]

@@ -1,5 +1,5 @@
 """Wavefront path-tracing integrator (port of
-mc_path_tracer_tpu/models/integrator.py, forward pass).
+mc_path_tracer_tpu/models/integrator.py).
 
 Each bounce is straight-line masked tensor code over the block's rays; dead
 lanes are predicated off with `where`.  Per bounce the default two-sample
@@ -42,8 +42,18 @@ the JAX package's pixel by pixel.
 `render_progressive` draws pass p's samples with fold_in(key, p) through
 `_tile_pass`, one film snapshot per (pass, tile), as the JAX package does.
 
-Sampled directions, pdfs, MIS weights and intersections are detached
-(`stop_gradient` in the JAX package); gradients are not ported yet.
+Gradients (detached sampling): sampled directions, pdfs, MIS weights and
+intersections are detached (`stop_gradient` in the JAX package), so
+autograd reaches the material factors, the light radiances and the
+environment texels through the shading math only, and no kernel needs a
+backward pass.  While grad mode is on and a tensor the sample reads
+requires grad, `render_tile_radiance` replays each sample
+(`torch.utils.checkpoint`, the JAX package's `jax.checkpoint` with
+`nothing_saveable`): the forward keeps only each sample's inputs, and the
+backward re-runs the sample, every kernel dispatch included, to rebuild its
+graph.  Randomness is threefry keyed by pixel id and the kernels are
+deterministic, so the replay meets the hits of the forward.  A render of a
+scene that nothing differentiates runs as a plain forward.
 `sort_rays` is accepted but not applied: sorting only permutes kernel
 lanes and never changes the result.
 """
@@ -55,6 +65,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.models import camera as camera_mod
@@ -396,22 +407,41 @@ def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx):
     return trace_radiance(scene, ro, rd, skey, cfg, pid=pid)
 
 
+def _requires_grad(*trees) -> bool:
+    """Whether any tensor in these (nested tuples of) tensors requires grad."""
+    for x in trees:
+        if isinstance(x, torch.Tensor):
+            if x.requires_grad:
+                return True
+        elif isinstance(x, tuple) and _requires_grad(*x):
+            return True
+    return False
+
+
 def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
                          width: int, height: int, px: torch.Tensor,
                          py: torch.Tensor, key: torch.Tensor, cfg: RenderConfig,
-                         spp: int | None = None) -> torch.Tensor:
+                         spp: int | None = None, replay: bool = True) -> torch.Tensor:
     """Radiance summed over `spp` samples for pixels (px, py) [R] (f32
     pixel coordinates), [R, 3].  The pixels run in PIXEL_CHUNK-ray blocks,
     each through every sample before the next block starts, so live state
-    stays bounded by the block."""
+    stays bounded by the block.  Under autograd each sample is replayed in
+    the backward (module docstring) unless `replay=False`, which keeps every
+    sample's graph alive until the backward instead."""
     spp = cfg.spp if spp is None else spp
+    replay = replay and torch.is_grad_enabled() and _requires_grad(scene, camera)
     blocks = []
     for s0 in range(0, px.shape[0], PIXEL_CHUNK):
         px_c, py_c = px[s0 : s0 + PIXEL_CHUNK], py[s0 : s0 + PIXEL_CHUNK]
         acc = torch.zeros((px_c.shape[0], 3), dtype=torch.float32, device=px.device)
         for s in range(spp):
-            acc = acc + _sample_pass(scene, cfg, camera, width, height,
-                                     px_c, py_c, key, s)
+            args = (scene, cfg, camera, width, height, px_c, py_c, key, s)
+            if replay:
+                sample = checkpoint(_sample_pass, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                sample = _sample_pass(*args)
+            acc = acc + sample
         blocks.append(acc)
     return torch.cat(blocks, dim=0)
 

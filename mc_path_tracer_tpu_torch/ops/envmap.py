@@ -2,7 +2,9 @@
 (port of mc_path_tracer_tpu/ops/envmap.py).
 
   - pdf_texture = lum * sin(pi y/H) / sum(...); marginal row CDF and
-    per-row conditional column CDFs (light_initialization_kernels.cu).
+    per-row conditional column CDFs (light_initialization_kernels.cu),
+    built on the host (`build_distribution`) or in torch on the texture's
+    device, differentiable in the texels (`build_distribution_traced`).
   - sampling: two uniforms -> searchsorted(side="right") in the row CDF,
     then in that row's column CDF -> uv = (x/W, y/H) -> equirect direction.
   - pdf(wi) = pdf_texel * W H / (2 pi^2 sin(theta)), texel binned by
@@ -22,6 +24,8 @@ from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.math import INV_4PI, PI, equirect_dir, equirect_uv
 from mc_path_tracer_tpu_torch.ops.sampling import sample_uniform_sphere
 
+LUMINANCE = (0.299, 0.587, 0.114)   # Rec.601 weights (jek::luminance)
+
 
 class EnvMapDistribution(NamedTuple):
     """CDF tables for environment importance sampling."""
@@ -38,7 +42,7 @@ def build_distribution(tex, device=DEFAULT_DEVICE) -> EnvMapDistribution:
     device = resolve_device(device)
     tex = np.asarray(tex, np.float32)
     h = tex.shape[0]
-    lum = tex @ np.asarray([0.299, 0.587, 0.114], np.float32)
+    lum = tex @ np.asarray(LUMINANCE, np.float32)
     v = np.arange(h, dtype=np.float32) / h
     sin_theta = np.sin(np.pi * v).astype(np.float32)
     weighted = lum * sin_theta[:, None]
@@ -53,6 +57,24 @@ def build_distribution(tex, device=DEFAULT_DEVICE) -> EnvMapDistribution:
         torch.from_numpy(cond_cdf).to(device),
         torch.from_numpy(pdf_texture.astype(np.float32)).to(device),
     )
+
+
+def build_distribution_traced(tex: torch.Tensor) -> EnvMapDistribution:
+    """build_distribution's tables in torch on `tex`'s own device, so that
+    gradients reach the texels: for optimisation loops that update the
+    environment and rebuild its sampling tables."""
+    h = tex.shape[0]
+    lum = torch.sum(tex * torch.tensor(LUMINANCE, dtype=tex.dtype, device=tex.device), dim=-1)
+    v = torch.arange(h, dtype=torch.float32, device=tex.device) / h
+    sin_theta = torch.sin(PI * v)
+    weighted = lum * sin_theta[:, None]
+    denom = torch.clamp(torch.sum(weighted), min=1e-20)
+    pdf_texture = weighted / denom
+    marginal_p = torch.sum(pdf_texture, dim=1)
+    marginal_cdf = torch.cumsum(marginal_p, dim=0)
+    cond_p = pdf_texture / torch.clamp(marginal_p[:, None], min=1e-20)
+    cond_cdf = torch.cumsum(cond_p, dim=1)
+    return EnvMapDistribution(marginal_cdf, cond_cdf, pdf_texture)
 
 
 # above this table width/height the flat broadcast-compare search switches to
