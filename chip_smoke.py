@@ -53,11 +53,38 @@ fails unless each dispatch went through the expected kernel:
                     config4's environment texels
   [train]           five SGD steps on config4's albedo: the loss falls at
                     every step
+  [bench]           the benchmark (mc_path_tracer_tpu_torch.bench) in
+                    --strided mode through bench.run: its JSON line, with
+                    bench.py's keys and the card, block times and host CPUs
+  [preview]         render_preview in every PREVIEW_MODE and render_debug:
+                    the bench scene at 1920x1080 (traversal kernel), the
+                    textured glTF scene at 512x512 under "auto" (dense
+                    kernel) and "pallas" (traversal kernel); seconds of two
+                    calls, launches, peak memory (the chunked shaded
+                    preview under 4 GB); the kernel route against the plain
+                    route on a 64x64 crop of the bench frame, and the glTF
+                    scene's dense route against its traversal route:
+                    G-buffer modes bit-equal, shaded and debug within 1e-6
+  [matpreview]      preview_material() at its defaults, on the preview path
+                    and path-traced (the 9,218-triangle ball: traversal)
+  [cli]             python3 -m mc_path_tracer_tpu_torch as a subprocess:
+                    the demo at its defaults, the rasterizer at 1920x1080,
+                    wireframe, debug, the heat-map view with --out-hdr;
+                    PNG sizes, the demo bright and not flat, the .npy
+                    finite, the imports of one run (-X importtime)
+  [interactive]     a headless InteractiveViewer at 96x64: accumulation
+                    restarts on a key, a mouse move and an object drag;
+                    frame() through the tone-map kernel, frame_to_ansi
+                    (run_tty needs a terminal and is not run)
   [stream]          the traversal kernel on 1,003,520 triangles (the TPU
                     streaming kernel's contract) against plain
   [device-time]     the kernels' device time at the shapes above, under
                     torch.profiler, after every frame has run
-  [imports]         no module of JAX or of the JAX package was loaded
+  [preview-trace]   one 1080p shaded preview under utils.profiling's
+                    device_trace: wall, device busy time, idle share, the
+                    costliest kernels, a Chrome trace
+  [imports]         every module of the port imported, and no module of
+                    JAX or of the JAX package loaded
 
 Needs a CUDA GPU and nvcc; fails (non-zero exit, no result line) without
 them and on any fault.  Every kernel must agree with its plain version on
@@ -77,14 +104,18 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from mc_path_tracer_tpu_torch.bench import bench_camera, build_bench_scene, card
 
 WIDTH, HEIGHT, SPP, DEPTH = 1920, 1080, 4, 5
 RAYS_PER_SAMPLE = 1 + (DEPTH - 2) + 2 * (DEPTH - 1)   # bench.py's 12
@@ -122,6 +153,14 @@ GRAD_CROP = 32
 GRAD_TOL = 1e-6           # gradient gap, as a share of the largest gradient
 FD_EPS, FD_RTOL = 1e-2, 1e-3
 TRAIN_STEPS, TRAIN_SPP, TRAIN_SCALE, TRAIN_LR = 5, 4, 1.2, 4.0
+# [bench]: bench.py's keys and the port's three beside them
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "traced_mrays_s", "rays_per_sample",
+              "frame_s", "spp_timed", "card", "block_s", "host_cpus")
+PREVIEW_RTOL = 1e-6       # shaded and debug, one route against another
+PREVIEW_PEAK_GB = 4.0     # the chunked 1080p shaded preview's peak memory
+CLI_SIZE = 512            # the command line's default --size
+CLI_HEAT_SPP = 4          # the heat-map run's default 64 spp cut to fit the run's time
+CLI_TIMEOUT = 300
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "closest": ("mc_path_tracer_tpu_torch/csrc/traversal.cu",
                 "mc_path_tracer_tpu/ops/pallas/traversal_kernel.py:892"),
@@ -153,58 +192,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the fp32 rate, in ms."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def build_bench_scene():
-    """bench.py's build_bench_scene through the port's Scene: a 40 m plane
-    and a 5x3 grid of UV spheres (48,002 triangles), a 64x128 HDR
-    environment and one directional light."""
-    from mc_path_tracer_tpu_torch.models.primitives import plane, uv_sphere
-    from mc_path_tracer_tpu_torch.models.scene import Scene
-
-    rng = np.random.default_rng(0)
-    env = (rng.uniform(0.1, 2.0, size=(64, 128, 3)) ** 2).astype(np.float32)
-    s = Scene()
-    s.set_environment_hdr(env, ls=1.0)
-    s.add_directional_light((0.4, 1.0, 0.2), color=(1.0, 0.95, 0.8), ls=3.0)
-    floor = s.add_material(albedo=(0.7, 0.7, 0.7), roughness=0.9)
-    p, n, uv, idx = plane(40.0)
-    s.add_mesh(p, idx, normals=n, uvs=uv, material_id=floor)
-    for i in range(5):
-        for j in range(3):
-            m = s.add_material(
-                albedo=(0.2 + 0.15 * i, 0.3 + 0.2 * j, 0.8 - 0.1 * i),
-                roughness=0.1 + 0.2 * j,
-                metallic=0.3 * j,
-            )
-            p, n, uv, idx = uv_sphere(
-                0.7, center=(1.8 * (i - 2), 0.7, 1.8 * (j - 1)),
-                rings=32, segments=50,
-            )
-            s.add_mesh(p, idx, normals=n, uvs=uv, material_id=m)
-    return s
-
-
-def bench_camera():
-    from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
-
-    return PerspectiveCamera(
-        position=np.array([0.3, 4.0, 9.0]),
-        target=np.array([0.0, 0.5, 0.0]), fov_deg=45.0,
-    )
 
 
 def phase_device() -> str:
@@ -1339,6 +1331,328 @@ def phase_train(steps: dict, device, name_limit) -> None:
 # [gltf] phase and tests/test_torch_gltf.py load the same file from here.
 # ---------------------------------------------------------------------------
 
+def phase_bench(name_limit) -> None:
+    """The benchmark's block loop in --strided mode, through bench.run (the
+    function its main calls): the result line and its keys, and every
+    block through the traversal kernel."""
+    from mc_path_tracer_tpu_torch import bench
+
+    _reset()
+    out = bench.run(strided=True, log=lambda msg: log(f"[bench] {msg}"))
+    got = _launches()
+    log(f"[bench] {json.dumps(out)}")
+    missing = [k for k in BENCH_KEYS if k not in out]
+    # the warm-up, the timed blocks and the re-measured ones, each a block
+    per = SPP * (DEPTH - 1)
+    log(f"[bench] strided: {out['value']:.3f} Mrays/s, frame {out['frame_s']:.3f} s "
+        f"({name_limit}); launches {got}")
+    if missing or not np.isfinite(out["value"]) or out["value"] <= 0.0:
+        raise AssertionError(f"bench line is missing {missing} or has no rate: {out}")
+    if got["plain"] or got["closest"] != got["anyhit"] or got["closest"] % per or \
+            got["closest"] < per * (1 + len(out["block_s"])):
+        raise AssertionError(f"bench blocks did not run through the kernel: {got}")
+
+
+def _preview_frame(sd, cam, width, height, mode, accel):
+    """preview_pixels over every pixel in row-major order, [H, W, 3]."""
+    from mc_path_tracer_tpu_torch.models.preview import preview_pixels
+
+    device = sd.tris.v0.device
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    px, py = xs.reshape(-1).float(), ys.reshape(-1).float()
+    return preview_pixels(sd, cam, width, height, px, py, mode, accel).reshape(height, width, 3)
+
+
+def _preview_run(label, fn, width, height, want, name_limit):
+    """fn() twice, each with the launch counts set to 0 and the peak memory
+    reset just before: checks the launches and the image; returns it."""
+    seconds, peaks = [], []
+    for _ in range(2):
+        _reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        got = _launches()
+        _expect(label, got, want)
+    log(f"[preview] {label} {width}x{height}: {seconds[0]:.3f} s first, {seconds[1]:.3f} s "
+        f"second ({name_limit}); launches {got}; peak {max(peaks):.3f} GB; mean "
+        f"{img.mean().item():.5f}")
+    if tuple(img.shape) != (height, width, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: image is not finite or has the wrong shape")
+    if label.endswith("shaded") and max(peaks) > PREVIEW_PEAK_GB:
+        raise AssertionError(f"{label}: peak {max(peaks):.3f} GB over {PREVIEW_PEAK_GB} GB")
+    if label.endswith("shaded") and img.std().item() <= 0.0:
+        raise AssertionError(f"{label}: the shaded preview is flat")
+    return img
+
+
+def _views_agree(label, a, b, mode) -> None:
+    """G-buffer modes bit-equal, shaded and debug within PREVIEW_RTOL."""
+    gap = ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+    log(f"[preview] {label} {mode}: max abs diff {(a - b).abs().max().item():.3e}, max rel "
+        f"{gap:.3e}, bit-equal {torch.equal(a, b)}")
+    ok = torch.equal(a, b) if mode not in ("shaded", "debug") else bool(
+        ((a - b).abs() <= PREVIEW_RTOL * b.abs()).all())
+    if not ok:
+        raise AssertionError(f"{label} {mode}: the two routes disagree")
+
+
+def phase_preview(device, out_dir: Path, name_limit) -> None:
+    """render_preview in every PREVIEW_MODE and render_debug at full width:
+    the bench scene at 1920x1080 (traversal kernel), then the textured glTF
+    scene at 512x512 under "auto" (dense kernel) and accel="pallas"
+    (traversal kernel).  Seconds of two calls, launches, peak memory; the
+    kernel route against the plain route on a crop of the bench frame, and
+    the glTF scene's dense route against its traversal route."""
+    from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
+    from mc_path_tracer_tpu_torch.models.film import Film
+    from mc_path_tracer_tpu_torch.models.integrator import camera_params
+    from mc_path_tracer_tpu_torch.models.preview import (
+        PREVIEW_MODES,
+        preview_pixels,
+        render_debug,
+        render_preview,
+    )
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+
+    modes = (*PREVIEW_MODES, "debug")
+
+    def taps(mode, closest, anyhit):
+        """Per chunk: one closest hit; shaded one any-hit per sun, debug one."""
+        return {closest: 1, anyhit: 1 if mode in ("shaded", "debug") else 0}
+
+    sd = build_scene("bench scene", build_bench_scene(), device, 48002)
+    cam = camera_params(bench_camera(), WIDTH, HEIGHT, device)
+    chunks = _blocks(WIDTH, HEIGHT)
+    def view(mode):
+        """The view as a user asks for it: render_preview or render_debug."""
+        if mode == "debug":
+            return render_debug(sd, bench_camera(), WIDTH, HEIGHT)
+        return render_preview(sd, bench_camera(), WIDTH, HEIGHT, mode)
+
+    for mode in modes:
+        want = {k: v * chunks for k, v in taps(mode, "closest", "anyhit").items()}
+        img = _preview_run(f"bench {mode}", lambda: view(mode).ld,  # noqa: B023
+                           WIDTH, HEIGHT, want, name_limit)
+        if mode == "shaded":
+            Film(ld=img, samples=torch.ones(img.shape[:2], device=device)).save_png(
+                str(out_dir / "preview_shaded.png"))
+    px, py = _crop(WIDTH, HEIGHT, CROP, device)
+    for mode in modes:
+        a, b = (preview_pixels(sd, cam, WIDTH, HEIGHT, px, py, mode, accel)
+                for accel in ("auto", "brute"))
+        _views_agree(f"bench {CROP}x{CROP} crop, kernel vs plain route", a, b, mode)
+    del sd
+
+    scene = textured_scene(Scene, write_textured_glb(out_dir / "textured.glb"))
+    sd = build_scene("textured glTF", scene, device, GLTF_TRIS)
+    cam = camera_params(textured_camera(PerspectiveCamera), GLTF_SIZE, GLTF_SIZE, device)
+    chunks = _blocks(GLTF_SIZE, GLTF_SIZE)
+    for mode in modes:
+        images = {}
+        for accel, names in (("auto", ("dense_closest", "dense_anyhit")),
+                             ("pallas", ("closest", "anyhit"))):
+            want = {k: v * chunks for k, v in taps(mode, *names).items()}
+            images[accel] = _preview_run(
+                f"gltf accel={accel} {mode}",
+                lambda: _preview_frame(sd, cam, GLTF_SIZE, GLTF_SIZE, mode, accel),  # noqa: B023
+                GLTF_SIZE, GLTF_SIZE, want, name_limit)
+        _views_agree("gltf dense vs traversal route", images["auto"], images["pallas"], mode)
+
+
+def phase_preview_trace(device, name_limit) -> None:
+    """One 1080p shaded preview of the bench scene under
+    utils.profiling.device_trace (torch.profiler, CPU + CUDA, a Chrome trace
+    into a temporary directory): the device busy time (the kernels' own
+    rows of the profile, so no time is counted twice under the aten op that
+    launched it), the idle share against the fastest of two unprofiled
+    calls, and the costliest kernels.  Runs after every frame, as the
+    profiler slows what follows it."""
+    from torch.autograd import DeviceType
+
+    from mc_path_tracer_tpu_torch.models.preview import render_preview
+    from mc_path_tracer_tpu_torch.utils.profiling import device_trace
+
+    sd = build_scene("bench scene", build_bench_scene(), device, 48002)
+
+    def shaded():
+        render_preview(sd, bench_camera(), WIDTH, HEIGHT, "shaded")
+        torch.cuda.synchronize()
+
+    shaded()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        shaded()
+        walls.append(time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with device_trace(log_dir) as prof:
+            render_preview(sd, bench_camera(), WIDTH, HEIGHT, "shaded")
+        traced = time.perf_counter() - t0
+        trace_bytes = (Path(log_dir) / "trace.json").stat().st_size
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(us for _, us, _ in kernels) / 1e6
+    log(f"[preview-trace] bench shaded {WIDTH}x{HEIGHT}: unprofiled {walls[0]:.3f}, "
+        f"{walls[1]:.3f} s; under device_trace {traced:.3f} s (writing a {trace_bytes}-byte "
+        f"Chrome trace included); device busy {busy:.4f} s in {sum(c for *_, c in kernels)} "
+        f"kernels, idle share {1.0 - busy / min(walls):.3f} of the fastest unprofiled call "
+        f"({name_limit})")
+    for key, us, count in sorted(kernels, key=lambda e: -e[1])[:6]:
+        log(f"[preview-trace]   {us / 1e3:9.3f} ms device  x{count:<5d} {key[:90]}")
+    if busy <= 0.0:
+        raise AssertionError("device_trace recorded no device time")
+
+
+def phase_matpreview(device, out_dir: Path, name_limit) -> None:
+    """preview_material() at its defaults (256 px) on the preview path and
+    path-traced at its 16 spp (depth 4): the 9,218-triangle ball takes the
+    traversal kernel."""
+    from mc_path_tracer_tpu_torch.models.matpreview import preview_material
+
+    size, spp, depth = 256, 16, 4
+    per = _blocks(size, size) * spp * (depth - 1)
+    for path_traced, want in ((False, {"closest": _blocks(size, size)}),
+                              (True, {"closest": per, "anyhit": per})):
+        _reset()
+        t0 = time.perf_counter()
+        film = preview_material(path_traced=path_traced)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        name = "path-traced" if path_traced else "preview"
+        film.save_png(str(out_dir / f"matpreview_{name}.png"))
+        got = _launches()
+        img = film.radiance_mean()
+        log(f"[matpreview] {name} {size}x{size}: {seconds:.3f} s ({name_limit}); launches "
+            f"{got}; image mean {img.mean().item():.5f} std {img.std().item():.5f}")
+        _expect(f"matpreview {name}", got, {**want, "tonemap": 1})
+        _check_image(f"matpreview {name}", img)
+        if img.std().item() <= 0.0:
+            raise AssertionError(f"matpreview {name}: the image is flat")
+
+
+def _read_png(path: Path) -> np.ndarray:
+    from mc_path_tracer_tpu_torch.utils.image import read_png
+
+    return read_png(path.read_bytes(), str(path))
+
+
+def phase_cli(out_dir: Path, name_limit) -> None:
+    """python3 -m mc_path_tracer_tpu_torch as a subprocess: the demo at its
+    defaults (512x512 x 64 spp x depth 5), the rasterizer at 1920x1080, the
+    wireframe and debug views, and the heat-map view with --out-hdr (spp
+    cut to CLI_HEAT_SPP).  Each exits 0 and writes a PNG of its size; the
+    demo's is bright and not flat, the .npy finite.  The rasterizer runs
+    under -X importtime, whose list of imports must hold no module of JAX
+    or of the JAX package."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p)}
+    size = (CLI_SIZE, CLI_SIZE)
+    runs = (("demo", [], size),
+            ("rasterizer", ["--mode", "rasterizer", "--size", f"{WIDTH}x{HEIGHT}"],
+             (WIDTH, HEIGHT)),
+            ("wireframe", ["--mode", "wireframe"], size),
+            ("debug", ["--mode", "debug"], size),
+            ("heatmap", ["--view", "heatmap", "--spp", str(CLI_HEAT_SPP),
+                         "--out-hdr", str(out_dir / "cli_heatmap.npy")], size))
+    for name, extra, (w, h) in runs:
+        png = out_dir / f"cli_{name}.png"
+        flags = ["-X", "importtime"] if name == "rasterizer" else []
+        cmd = [sys.executable, *flags, "-m", "mc_path_tracer_tpu_torch", "--demo",
+               "--out", str(png), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        log(f"[cli] {name}: exit {proc.returncode}, wall {wall:.3f} s ({name_limit}): {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {name} failed:\n{proc.stderr[-4000:]}")
+        img = _read_png(png)
+        if img.shape != (h, w, 3):
+            raise AssertionError(f"cli {name}: {png} is {img.shape}, expected {(h, w, 3)}")
+        if name == "demo":
+            log(f"[cli] demo PNG max {img.max()}, mean {img.mean():.3f}, std {img.std():.3f}")
+            if img.max() <= 200 or img.std() <= 0.0:
+                raise AssertionError("cli demo: the PNG is dark or flat")
+        if name == "heatmap":
+            hdr = np.load(out_dir / "cli_heatmap.npy")
+            log(f"[cli] heatmap .npy {hdr.shape} {hdr.dtype}, mean {hdr.mean():.5f}")
+            if hdr.shape != (h, w, 3) or not np.isfinite(hdr).all():
+                raise AssertionError("cli heatmap: the .npy is not finite or has the wrong shape")
+        if name == "rasterizer":
+            imported = [ln.rsplit("|", 1)[-1].strip() for ln in proc.stderr.splitlines()
+                        if ln.startswith("import time:")]
+            ref = [m for m in imported if m in ("jax", "jaxlib", "mc_path_tracer_tpu")
+                   or m.startswith(("jax.", "jaxlib.", "mc_path_tracer_tpu."))]
+            log(f"[cli] rasterizer imported {len(imported)} modules, of JAX or the JAX "
+                f"package: {ref}")
+            if not imported or ref:
+                raise AssertionError(f"the command line imported reference modules: {ref[:5]}")
+
+
+def phase_interactive(device, name_limit) -> None:
+    """A headless InteractiveViewer at its default 96x64 (64 spp, depth 3,
+    one pass a step) on the demo scene: passes accumulate; a key event and
+    a mouse event each restart accumulation at one pass; an
+    ObjectEditSession drag bumps the scene version and restarts it too;
+    frame() goes through the tone-map kernel and frame_to_ansi draws it.
+    run_tty needs a terminal and is not run."""
+    from mc_path_tracer_tpu_torch.cli import demo_scene
+    from mc_path_tracer_tpu_torch.models.interactive import (
+        InteractiveViewer,
+        ObjectEditSession,
+        frame_to_ansi,
+    )
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+
+    scene = demo_scene(Scene())
+    scene.add_directional_light((0.4, 1.0, 0.2), ls=5.0)
+    viewer = InteractiveViewer(scene, device=device)
+    w, h, depth = viewer.width, viewer.height, viewer.cfg.max_depth
+
+    def samples():
+        return viewer.session.film.samples.max().item()
+
+    _reset()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        viewer.step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = [samples()]
+    moved = [viewer.handle_events(keys=["w"])]
+    viewer.step()
+    counts.append(samples())
+    moved.append(viewer.handle_events(mouse=(20.0, -10.0)))
+    viewer.step()
+    counts.append(samples())
+    version = scene.version
+    ObjectEditSession(scene, obj_id=1).rotate_drag(0.0, 0.0, 0.4, 0.1)
+    viewer.step()
+    counts.append(samples())
+    frame = viewer.frame()
+    ansi = frame_to_ansi(frame)
+    got = _launches()
+    steps = 6
+    log(f"[interactive] {w}x{h} depth {depth}: 3 passes in {seconds:.3f} s ({name_limit}); "
+        f"samples after 3 passes, a key, a mouse move, an object drag: {counts}; moved {moved}; "
+        f"scene version {version} -> {scene.version}; frame {frame.shape}, {ansi.count(chr(10)) + 1} "
+        f"ANSI rows; launches {got}; run_tty needs a terminal: not run")
+    per = steps * _blocks(w, h) * (depth - 1)
+    _expect("interactive", got, {"closest": per, "anyhit": per, "tonemap": 1})
+    if counts != [3.0, 1.0, 1.0, 1.0] or moved != [True, True] or scene.version <= version:
+        raise AssertionError("the viewer did not restart accumulation on a move or an edit")
+    if frame.shape != (h, w, 3) or ansi.count("\n") != h // 2 - 1 or "\x1b[38;2;" not in ansi:
+        raise AssertionError("the viewer's frame or its ANSI rendering is wrong")
+
+
 def _paeth(a, b, c):
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
@@ -1518,6 +1832,19 @@ def write_textured_glb(path, images: list[bytes] | None = None) -> Path:
 
 
 def phase_imports():
+    """Every module of the port imported (its command line's __main__
+    aside, which [cli] ran), then no module of JAX or of the JAX package
+    may be loaded."""
+    import importlib
+    import pkgutil
+
+    import mc_path_tracer_tpu_torch as pkg
+
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+             if not m.name.endswith(".__main__")]
+    for name in names:
+        importlib.import_module(name)
+    log(f"[imports] {len(names)} modules of the port imported")
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "jaxlib", "mc_path_tracer_tpu")
                     or m.startswith(("jax.", "jaxlib.", "mc_path_tracer_tpu.")))
@@ -1558,8 +1885,14 @@ def main() -> int:
     phase_grad_check(steps, device, name_limit)
     phase_train(steps, device, name_limit)
     del scenes, sd2, steps
+    phase_bench(name_limit)
+    phase_preview(device, out_dir, name_limit)
+    phase_matpreview(device, out_dir, name_limit)
+    phase_cli(out_dir, name_limit)
+    phase_interactive(device, name_limit)
     phase_stream(device, later, name_limit)
     phase_device_times(later, name_limit)
+    phase_preview_trace(device, name_limit)
     phase_imports()
     launches = {"closest": bench_launches["closest"], "anyhit": bench_launches["anyhit"],
                 "dense_closest": area_launches["dense"]["dense_closest"],

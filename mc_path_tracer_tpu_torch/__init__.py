@@ -17,13 +17,18 @@ Layout:
   csrc/      CUDA sources and the native BVH builder (C++).
   models/    camera, film, materials, lights, mesh primitives, scene,
              integrator (with per-sample path replay under autograd),
-             engine (progressive session).
+             preview and debug views, material preview, engine (render
+             modes, progressive session), interactive controllers and
+             the terminal viewer.
   parallel/  the inverse-rendering train step (MaterialGrads,
              make_train_step); multi-device rendering is not ported yet.
   utils/     host code: the native builder's binding, image IO (PNG
              decoding without PIL), mesh attributes, glTF loading, the
-             texture atlas, film and parameter checkpoints.
+             texture atlas, film and parameter checkpoints, profiling.
   configs.py the five verification configs.
+  cli.py     the command line, `python3 -m mc_path_tracer_tpu_torch`.
+  bench.py   the benchmark of the main path,
+             `python3 -m mc_path_tracer_tpu_torch.bench`.
 
 This package imports torch and numpy, never jax and nothing of the JAX
 package.
@@ -38,6 +43,11 @@ _LAZY = {
     "RenderConfig": ("mc_path_tracer_tpu_torch.models.integrator", "RenderConfig"),
     "render": ("mc_path_tracer_tpu_torch.models.integrator", "render"),
     "make_train_step": ("mc_path_tracer_tpu_torch.parallel.render", "make_train_step"),
+    "render_preview": ("mc_path_tracer_tpu_torch.models.preview", "render_preview"),
+    "render_debug": ("mc_path_tracer_tpu_torch.models.preview", "render_debug"),
+    "preview_material": ("mc_path_tracer_tpu_torch.models.matpreview", "preview_material"),
+    "InteractiveViewer": ("mc_path_tracer_tpu_torch.models.interactive", "InteractiveViewer"),
+    "RenderStats": ("mc_path_tracer_tpu_torch.utils.profiling", "RenderStats"),
 }
 
 __all__ = [*_LAZY, "__version__"]

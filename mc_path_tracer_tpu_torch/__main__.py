@@ -1,0 +1,3 @@
+from mc_path_tracer_tpu_torch.cli import main
+
+raise SystemExit(main())

@@ -1,9 +1,9 @@
 """RenderEngine facade and the progressive render session (port of
 mc_path_tracer_tpu/models/engine.py).
 
-`RenderEngine.render` dispatches on the render mode; the port has the path
-tracer only, and the rasterizer preview, wireframe and debug modes raise
-NotImplementedError (ROADMAP Queue 1, preview and debug).  `RenderSession`
+`RenderEngine.render` dispatches on the render mode: the rasterizer
+stand-in (the shaded preview), the wireframe preview, the single-bounce
+debug visualizer (models/preview.py) or the path tracer.  `RenderSession`
 advances one progressive (pass, tile) step per `step()` and restarts from a
 cleared film whenever the scene's `version` changed since the last step:
 any scene edit clears the accumulation.
@@ -20,13 +20,13 @@ from mc_path_tracer_tpu_torch.models.integrator import (
     render as pt_render,
     render_progressive,
 )
+from mc_path_tracer_tpu_torch.models.preview import render_debug, render_preview
 from mc_path_tracer_tpu_torch.ops import rng
 
 MODE_RASTERIZER = "rasterizer"
 MODE_PATH_TRACER = "path_tracer"
 MODE_DEBUG = "debug"
 MODE_WIREFRAME = "wireframe"
-PREVIEW_TODO = "is not ported yet (ROADMAP Queue 1, preview and debug)"
 
 
 class RenderEngine:
@@ -34,8 +34,12 @@ class RenderEngine:
 
     def render(self, scene, camera, width: int, height: int, mode: str = MODE_PATH_TRACER,
                cfg: RenderConfig = RenderConfig(), key=None, device=DEFAULT_DEVICE) -> Film:
-        if mode in (MODE_RASTERIZER, MODE_WIREFRAME, MODE_DEBUG):
-            raise NotImplementedError(f"render mode {mode!r} {PREVIEW_TODO}")
+        if mode == MODE_RASTERIZER:
+            return render_preview(scene, camera, width, height, "shaded", device=device)
+        if mode == MODE_WIREFRAME:
+            return render_preview(scene, camera, width, height, "wireframe", device=device)
+        if mode == MODE_DEBUG:
+            return render_debug(scene, camera, width, height, device=device)
         if mode == MODE_PATH_TRACER:
             return pt_render(scene, camera, width, height, cfg, key=key, device=device)
         raise ValueError(f"unknown render mode {mode!r}")

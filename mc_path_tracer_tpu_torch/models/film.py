@@ -3,7 +3,8 @@ tile schedule and the traversal tile order (port of
 mc_path_tracer_tpu/models/film.py).  A Film is a snapshot: progressive
 rendering yields a new one per step.  `to_uint8` and `save_png` of a film
 on the card go through the tone-map kernel (ops/kernels/tonemap.py); a film
-on the CPU through its plain version."""
+on the CPU through its plain version.  view="heatmap" selects the luminance
+heat map (ops/tonemap.heatmap), plain torch on either device."""
 
 from __future__ import annotations
 
@@ -31,15 +32,22 @@ class Film(NamedTuple):
     def width(self) -> int:
         return self.ld.shape[1]
 
-    def to_display(self, exposure: float = 1.0) -> torch.Tensor:
+    def to_display(self, exposure: float = 1.0, view: str = "color") -> torch.Tensor:
+        if view == "heatmap":
+            return tonemap.heatmap(self.ld, self.samples, exposure)
         return tonemap.reinhard(self.ld, self.samples, exposure)
 
-    def to_uint8(self, exposure: float = 1.0) -> np.ndarray:
+    def to_uint8(self, exposure: float = 1.0, view: str = "color") -> np.ndarray:
+        """The display image in 8 bits: the colour view through the tone-map
+        kernel (its plain version for a film on the CPU), the heat map in
+        plain torch."""
+        if view == "heatmap":
+            return tonemap.quantize(self.to_display(exposure, view)).cpu().numpy()
         return tonemap_kernel.tonemap(
             self.ld.contiguous(), self.samples.contiguous(), exposure).cpu().numpy()
 
-    def save_png(self, path: str, exposure: float = 1.0) -> None:
-        write_png(path, self.to_uint8(exposure))
+    def save_png(self, path: str, exposure: float = 1.0, view: str = "color") -> None:
+        write_png(path, self.to_uint8(exposure, view))
 
     def radiance_mean(self) -> torch.Tensor:
         """Linear HDR image (Ld / samples)."""

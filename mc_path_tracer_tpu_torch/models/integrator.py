@@ -446,6 +446,15 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     return torch.cat(blocks, dim=0)
 
 
+def built_scene(scene, device=DEFAULT_DEVICE):
+    """(SceneData, its device): a SceneData as given, on its own device, or
+    a Scene built on `device`."""
+    if isinstance(scene, SceneData):
+        return scene, scene.tris.v0.device
+    device = resolve_device(device)
+    return scene.build(device), device
+
+
 def camera_params(camera, width: int, height: int, device=DEFAULT_DEVICE):
     """A host PerspectiveCamera (aspect set from the film size) or
     ready-made CameraParams."""
@@ -462,12 +471,7 @@ def render(scene, camera, width: int, height: int,
     Pixels are traced in 32x16 tile-major order and scattered back to image
     layout."""
     _check_supported(cfg)
-    if isinstance(scene, SceneData):
-        scene_data = scene
-        device = scene_data.tris.v0.device
-    else:
-        device = resolve_device(device)
-        scene_data = scene.build(device)
+    scene_data, device = built_scene(scene, device)
     if key is None:
         key = rng.prng_key(0)
     cam = camera_params(camera, width, height, device)
@@ -504,12 +508,7 @@ def render_progressive(scene, camera, width: int, height: int,
     spp_per_pass samples with keys fold_in(key, p).  Re-invoking after a
     scene edit restarts accumulation."""
     _check_supported(cfg)
-    if isinstance(scene, SceneData):
-        scene_data = scene
-        device = scene_data.tris.v0.device
-    else:
-        device = resolve_device(device)
-        scene_data = scene.build(device)
+    scene_data, device = built_scene(scene, device)
     if key is None:
         key = rng.prng_key(0)
     cam = camera_params(camera, width, height, device)

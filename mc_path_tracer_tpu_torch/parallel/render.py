@@ -8,7 +8,7 @@ radiance scales and the environment texels, as the JAX step does with
 `jax.value_and_grad`: on the scene's own device, through the same kernels
 as a render.  Parameters that no path reaches get zero gradients, not
 None.  Sharded rendering over several devices (`mesh`, `render_sharded`,
-the gradient all-reduce) waits for ROADMAP Queue 1 item 10.
+the gradient all-reduce) waits for ROADMAP Queue 1, multi-device.
 """
 
 from __future__ import annotations
@@ -70,8 +70,8 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
     (the replayed samples')."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_train_step(mesh=...): sharded train steps wait for ROADMAP Queue 1 "
-            "item 10 (multi-device); pass mesh=None for a one-device step")
+            "make_train_step(mesh=...): sharded train steps wait for ROADMAP Queue 1, "
+            "multi-device; pass mesh=None for a one-device step")
 
     def train_step(scene: SceneData, cam, px, py, target, key):
         mat, ls, tex = scene_params(scene)

@@ -205,3 +205,11 @@ def _unfilter(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int,
             pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
             cur[i] = (cur[i] + pred) & 0xFF
     return np.frombuffer(bytes(cur), np.uint8)
+
+
+def write_hdr_npy(path: str, img) -> None:
+    """Save linear HDR radiance losslessly as float32 .npy (a tensor is
+    copied to the host first)."""
+    if hasattr(img, "detach"):
+        img = img.detach().cpu().numpy()
+    np.save(path, np.asarray(img, np.float32))

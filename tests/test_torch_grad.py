@@ -85,8 +85,10 @@ def pixels(w=W, h=H):
 def camera_rays(jcam, tcam, w=W, h=H):
     """The same pinhole camera rays for both packages."""
     px, py = pixels(w, h)
-    jr = jgen(dataclasses.replace(jcam, aspect=w / h).params(), w, h, jnp.asarray(px),
-              jnp.asarray(py), jnp.zeros((w * h, 2)))
+    cam = dataclasses.replace(jcam, aspect=w / h).params()
+    # one compiled program: op-by-op dispatch compiles each op apart
+    jr = jax.jit(lambda x, y: jgen(cam, w, h, x, y, jnp.zeros((w * h, 2))))(
+        jnp.asarray(px), jnp.asarray(py))
     tr = tgen(tint.camera_params(tcam, w, h, "cpu"), w, h, torch.from_numpy(px),
               torch.from_numpy(py), torch.zeros((w * h, 2)))
     return jr, tr
@@ -222,7 +224,7 @@ def test_unreached_parameters_get_zeros(train_steps):
 
 
 def test_make_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1, multi-device"):
         make_train_step(tint.RenderConfig(), W, H, 1, mesh=object())
 
 
@@ -272,12 +274,13 @@ def test_render_is_the_same_with_grad_enabled():
     assert leaves[0].grad is not None and leaves[0].grad.abs().sum() > 0
 
 
-def floor_scene():
-    """tests/test_integrator.py's floor_scene: a Lambertian floor under an
-    overhead directional light (ls 2), black environment."""
+def floor_scene(roughness=1.0, metallic=0.0):
+    """tests/test_integrator.py's floor_scene: a floor (Lambertian unless
+    given a roughness and metallic) under an overhead directional light
+    (ls 2), black environment."""
     s = TScene()
     s.set_environment_color((0, 0, 0), ls=0.0)
-    mat = s.add_material(albedo=(0.8, 0.4, 0.2), roughness=1.0, metallic=0.0)
+    mat = s.add_material(albedo=(0.8, 0.4, 0.2), roughness=roughness, metallic=metallic)
     p = np.array([[-10, 0, -10], [10, 0, -10], [10, 0, 10], [-10, 0, 10]], np.float32)
     s.add_mesh(p, np.array([[0, 2, 1], [0, 3, 2]]),
                normals=np.tile([[0, 1, 0]], (4, 1)).astype(np.float32), material_id=mat)
@@ -310,6 +313,39 @@ def test_finite_differences(field, index, rtol):
     eps = 1e-2
     fd = (loss(eps) - loss(-eps)) / (2 * eps)
     np.testing.assert_allclose(grad, fd, rtol=rtol)
+
+
+@pytest.mark.parametrize("field, index", [("roughness", 0), ("metallic", 0), ("fresnel", 1)])
+def test_finite_differences_glossy(field, index):
+    """Central differences on the glossy terms (ROADMAP Queue 3 #1, which
+    the JAX package holds only as finite and nonzero): a glossy half-metal
+    floor (roughness 0.5, metallic 0.4), 4x4 rays, 1 spp, depth 2.  The
+    floor has no silhouette and the black environment contributes nothing,
+    so the radiance is the sun's smooth GGX-plus-Lambert response and the
+    autograd gradient meets the central difference (eps 2e-3) within 1e-3
+    relative.  (At roughness 0.35 the sum's roughness derivative is small,
+    -0.61 against -68 at 0.5, and an eps small enough for the curvature
+    there meets float32 noise.)"""
+    sd = floor_scene(roughness=0.5, metallic=0.4)
+    px, py = (torch.from_numpy(v) for v in pixels(4, 4))
+    rays = tgen(tint.camera_params(TCam(**FLOOR_CAM), 4, 4, "cpu"), 4, 4, px, py,
+                torch.zeros(16, 2))
+    cfg = tint.RenderConfig(spp=1, max_depth=2)
+    _, grads = port_trace_grads(sd, rays, 2, key=0)
+    grad = grads[NAMES.index(field)].reshape(-1)[index]
+    assert grad != 0
+
+    def loss(delta):
+        mat, ls, tex = tpar.scene_params(sd)
+        value = getattr(mat, field).clone()
+        value.view(-1)[index] += delta
+        mat = mat._replace(**{field: value})
+        return float(tint.trace_radiance(tpar.with_params(sd, (mat, ls, tex)), *rays,
+                                         trng.prng_key(0), cfg).double().sum())
+
+    eps = 2e-3
+    fd = (loss(eps) - loss(-eps)) / (2 * eps)
+    np.testing.assert_allclose(grad, fd, rtol=1e-3)
 
 
 def test_sgd_step_lowers_loss():
@@ -355,7 +391,7 @@ def test_build_distribution_traced():
         d = jenv.build_distribution_traced(t)
         return jnp.sum(d.marginal_cdf * weights[0]) + jnp.sum(d.pdf_texture * weights[1])
 
-    want = np.asarray(jax.grad(jloss)(jnp.asarray(tex)))
+    want = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(tex)))
     (got,) = torch.autograd.grad((traced.marginal_cdf * torch.from_numpy(weights[0])).sum()
                                  + (traced.pdf_texture * torch.from_numpy(weights[1])).sum(),
                                  [tt])

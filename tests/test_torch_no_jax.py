@@ -1,6 +1,9 @@
 """The port stands alone: in a fresh interpreter, import every module of
 mc_path_tracer_tpu_torch, render an 8x8 frame of a scene with an area light
-and an 8x8 frame of one with a directional light on the CPU, and check that
+and an 8x8 frame of one with a directional light on the CPU, run the
+command line (`python3 -m mc_path_tracer_tpu_torch`) in the path tracer and
+the preview and the benchmark's main (which refuses to run without a card),
+and check that
 no module of JAX and none of the JAX package (mc_path_tracer_tpu) was
 loaded (the GPU machine that runs the port has no JAX).  No source of the
 port names the JAX package outside comments and docstrings, and the port
@@ -30,7 +33,8 @@ import importlib, pkgutil, sys
 import numpy as np
 import mc_path_tracer_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+    if not m.name.endswith(".__main__"):
+        importlib.import_module(m.name)
 from mc_path_tracer_tpu_torch.models.primitives import plane, uv_sphere
 from mc_path_tracer_tpu_torch import PerspectiveCamera, RenderConfig, Scene, render
 s = Scene()
@@ -58,6 +62,24 @@ assert a.builder == "native", a.builder
 img = film.radiance_mean()
 assert bool(img.isfinite().all()) and float(img.mean()) > 0
 assert film.to_uint8().shape == (8, 8, 3)
+# the command line as `python3 -m mc_path_tracer_tpu_torch` runs it, in the
+# path tracer and the preview, and the benchmark, which runs on the card only
+import os, runpy, tempfile
+out = os.path.join(tempfile.mkdtemp(), "cli.png")
+for mode in ("path_tracer", "rasterizer"):
+    sys.argv = ["mc_path_tracer_tpu_torch", "--demo", "--size", "8x6", "--spp", "1",
+                "--depth", "2", "--mode", mode, "--device", "cpu", "--out", out]
+    try:
+        runpy.run_module("mc_path_tracer_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    assert os.path.getsize(out) > 0
+sys.argv = ["mc_path_tracer_tpu_torch.bench", "--strided"]
+try:
+    runpy.run_module("mc_path_tracer_tpu_torch.bench", run_name="__main__")
+    raise AssertionError("the benchmark ran without a card")
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 ref = sorted(m for m in sys.modules

@@ -18,6 +18,7 @@ from mc_path_tracer_tpu.models.scene import Scene as JScene
 from mc_path_tracer_tpu.utils import checkpoint as jckpt
 from mc_path_tracer_tpu_torch.models import engine
 from mc_path_tracer_tpu_torch.models import film as tfilm
+from mc_path_tracer_tpu_torch.models import preview
 from mc_path_tracer_tpu_torch.models import integrator as tint
 from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera as TCam
 from mc_path_tracer_tpu_torch.models.scene import Scene as TScene
@@ -88,9 +89,15 @@ def test_engine_modes():
     film = eng.render(small_scene(TScene), TCam(**CAM), 4, 4, engine.MODE_PATH_TRACER,
                       tint.RenderConfig(spp=1, max_depth=2), device="cpu")
     assert tuple(film.ld.shape) == (4, 4, 3)
-    for mode in (engine.MODE_RASTERIZER, engine.MODE_WIREFRAME, engine.MODE_DEBUG):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            eng.render(small_scene(TScene), TCam(**CAM), 4, 4, mode, device="cpu")
+    scene = small_scene(TScene)
+    for mode, want in ((engine.MODE_RASTERIZER, preview.render_preview(
+                            scene, TCam(**CAM), 4, 4, "shaded", device="cpu")),
+                       (engine.MODE_WIREFRAME, preview.render_preview(
+                            scene, TCam(**CAM), 4, 4, "wireframe", device="cpu")),
+                       (engine.MODE_DEBUG, preview.render_debug(
+                            scene, TCam(**CAM), 4, 4, device="cpu"))):
+        film = eng.render(scene, TCam(**CAM), 4, 4, mode, device="cpu")
+        assert torch.equal(film.ld, want.ld) and torch.equal(film.samples, want.samples)
     with pytest.raises(ValueError, match="unknown render mode"):
         eng.render(small_scene(TScene), TCam(**CAM), 4, 4, "sketch", device="cpu")
 
