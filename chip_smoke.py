@@ -16,6 +16,10 @@ fails unless each dispatch went through the expected kernel:
                     traversal kernel
   [parity]          kernel route against plain route on a 64x64 crop
   [tonemap]         the tone-map kernel against plain on the bench film
+  [sharded]         render_sharded of the bench frame on two shards of the
+                    card (make_mesh(devices=["cuda:0"] * 2)): bit-equal to
+                    [render]'s frame, seconds beside [render]'s, launches
+                    per shard, saved as a PNG
   [dense]           config2 (2,320 triangles, emissive quad): the dense
                     kernel against plain on 65,536 camera rays and 65,536
                     bounded shadow rays toward the quad
@@ -36,6 +40,16 @@ fails unless each dispatch went through the expected kernel:
                     kernel) and "pallas" (the traversal kernel): the
                     images agree, the kernel route agrees with the plain
                     route on a crop, the frame is saved as a PNG
+  [images]          two embedded JPEGs (baseline 4:2:0 with restart
+                    markers, progressive) decoded by utils/jpeg.read_jpeg
+                    must hash as PIL's decode; seconds per megapixel on the
+                    host; the textured GLB with a JPEG base colour rendered
+                    under "auto" (dense) and "pallas" (traversal), agreeing
+                    as in [gltf]
+  [procedural]      a 187,500-triangle L-system tree (LSystem +
+                    Turtle.to_mesh) on the bench floor, environment and sun,
+                    at 1920x1080 x 4 spp x depth 5 through the traversal
+                    kernel, saved as a PNG; host build seconds
   [reuse]           config2 with reuse_brdf_ray: one closest hit per
                     sample fewer; on config4, fewer any-hit lanes
   [progressive]     render_progressive on config4 adds up to the 1-spp
@@ -53,6 +67,15 @@ fails unless each dispatch went through the expected kernel:
                     config4's environment texels
   [train]           five SGD steps on config4's albedo: the loss falls at
                     every step
+  [sharded]         config4's train step on two shards of the card: its
+                    gradients within 1e-5 of [grad]'s one-device step
+  [multiprocess]    two processes on the card joined by gloo (this script
+                    re-run with --worker): render_sharded_global of config4
+                    and a sharded train step per rank; rank 0's all-gathered
+                    frame bit-equal to [configs]' config4, every rank's
+                    gradients within 1e-5 of [grad]'s; whether gloo takes
+                    CUDA tensors; then one NCCL rank (world size 1): its
+                    step bit-equal to the one-device step
   [bench]           the benchmark (mc_path_tracer_tpu_torch.bench) in
                     --strided mode through bench.run: its JSON line, with
                     bench.py's keys and the card, block times and host CPUs
@@ -153,6 +176,96 @@ GRAD_CROP = 32
 GRAD_TOL = 1e-6           # gradient gap, as a share of the largest gradient
 FD_EPS, FD_RTOL = 1e-2, 1e-3
 TRAIN_STEPS, TRAIN_SPP, TRAIN_SCALE, TRAIN_LR = 5, 4, 1.2, 4.0
+# [sharded] / [multiprocess]: two shards of the card (render_sharded,
+# make_train_step(mesh=...)), and two processes on it joined by gloo
+SHARDS = 2
+GRAD_SHARD_TOL = 1e-5     # sharded gradients: only the order of the sum differs
+WORKER_TIMEOUT = 600
+# [images]: two JPEGs written by PIL 12.1.0 (libjpeg-turbo 3.1.3, the
+# imaging package the JAX package decodes with): the base64 of the file,
+# the SHA-256 of PIL's Image.open(...).convert("RGB") pixels, and the size
+EMBEDDED_JPEGS = {
+    # 128x96 baseline 4:2:0, quality 85, a restart marker every 4 MCUs
+    "baseline": ((
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8LCwkMEQ8SEhEPERETFhwXExQa"
+    "FRERGCEYGh0dHx8fExciJCIeJBweHx7/2wBDAQUFBQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+    "Hh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh7/wAARCABgAIADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+    "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAk"
+    "M2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKT"
+    "lJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QA"
+    "HwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdh"
+    "cRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+    "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/90ABAAE/9oADAMBAAIRAxEAPwDT04HbktuIxilvdoTC8/3RjpSWAJCZUgn05x9Kddkh"
+    "Tt6nnkV99L+OfkK+A8rvc+Y2CCc9elFk2X3jH4Ci9yxJwRuOOQRii0yWDFsEen9a/Hf+XJ/Y/wBs9VsyMckHAxxw"
+    "DTL7JBPbHTHIx0pbIqRu6Z75/wAKbe5UMVbGRkCv2Nfxj+OH/DPLb0hCwAPHQk4NS2PD4BG36VHeD5skZ5xwen+c"
+    "07TsuxUL27exr8bl/AP7HX8Q/9DWs1wg6dBgZ4FR3ykkkrgcg8f5/wA5qW14QMSCTxjGKhv95XKjJx1HQ19/T1rH"
+    "5FL4Lnlt2AWIOD2zwKmsMb8ZKnPQVDc5MmCMAHjP9P5VPp5+ZcEj6HPNfjdRL2J/Y0PjPUrPd5Q457flVXUAEUke"
+    "nOeTVu2HA3Hk+vOTmqmpbTGeACOhBr9kpfxz+OJ/AeXz4LZ6k88HFW7D7ysG4zyM96pzjEgUL7dTVzTeu7gAfn9P"
+    "pX43X0pH9jw/iH//0cCyJSMNgY7Yp14rBc9h2Jplnzg4zgcGnXg+UjGRgf5/Kvzh39qfvq+A0rvO8k8445FFpuMv"
+    "brwPWkvsGUgkep4oswN+WwG9OvFf1V/y5P4R+3qZ1iMqOgyDn86S/wDunaBnp1H86Wyc7QOnHJP1pt4Pl4+/2UCv"
+    "5VX8Y/u56UzSvRgsGPTk54xUliMuP4iT0NR3YVXIGCP7o/nUlkcknAx/Ov6pn/BP4Rj8Z//SwrQ4Q55J6e1RXobB"
+    "y3AHr/n/ACKnsvudcZAqC+IKHjp71+cQf74/fJX9maV426QnByB0PTmrGmjDjr7/AIVWu1O5iMYzlscZqzYZ3K3Y"
+    "HOSMHFf1TVX7k/hGPxmZbkhQTxwSM9f89ar6h8wbADd8ZzirNoCYeduPxFVtQJVW55Pc1/K1J/vtD+7pv92aVx/r"
+    "iecDnr1q5pwBwDgkc5Hv/wDqqnOMPnk89e1W9PUAggAbj361/VFf+CfwlT+M/9PTsicYKjJ7cdKfe/dJwcAfxd6Z"
+    "YZPUYxwCe9Pu142jA5zX38v4x+QJfuzyu9LBm4IAOSBRYkkrjPPP3aS9IBJJ79T/APX/AAos8D5huBznOP61+Of8"
+    "uT+yPtnqloSIMblx1+lNv8gNknpgnPFOsCAqhcc/ezzSX27YQSc9vw/z+lfsauq1j+OPsHllzt3j7/4Y59afZD5+"
+    "P4uoqO5QmfbjHp64p9hgMcjAPoea/HJ6UT+x18eh/9TXs22ouTkYGSP8KgvwcZ6deOvtk1PZkGM5I6dx3qK++deo"
+    "wDnJ+lffw0qn5DL4Dyq5J849Oehz1qzp3BXqfrmq9xkcEDPtzxU9gPn5xjgelfjdX+Cf2PH4z1Szz5RwucDOaq3/"
+    "AEJHPPGP0qxb7dhGBzzj2qtqRwMe3BA4r9kor98fxxNe4eXT8M3pnPTmrVhktkAdu/8An2qtMW39Fxng+gqzp+Sw"
+    "yfQdOD+Vfjde3sj+yKfxn//VwLFzs3gjaAcAjp/jTr7GwAk9CSAf8+tMsEGAB16nOKfetlOmPYV+cSt7Y/fF/DNG"
+    "+BJPOCc8ikswPNGM5wBtPalvF+YksM5znFJaY3EqO/HFf1StaJ/CX/LwzrIZjDbsnORx0pLwfKSQCMc4OM06zLFA"
+    "SCTjOO5pt9t2kkdB+Nfysv4x/dt/cNC8Y+ZjIz0JIz3/AM/lUlnw4Gfwzzio7rAk64OexqSxGGz17Hmv6pl/CP4R"
+    "jrUP/9bDth8uVGRjsKi1IZQ/dz9fapLRCRgcY9RUeoKcc9B3z/KvziH8Y/fZW9maN0R5jDPPp6f5xVnThypPQjAN"
+    "V7kjzGOenPTmp9OI3KGHUYxnAFf1RU/gn8IR+MzYOYTxwOc9PyqrfjKnJ+YHnnPardthgoOAR6nr+tVb4/fU4Py9"
+    "QOlfyvRf74/u6X8M1LjJYsvXv3xVnTjhsYHPPUVVuf8AW9wOn/66s6ePnXGdxB4Nf1RW/gn8I0/jP//X1LLBiw3J"
+    "IzilvcbSo/HP6cUmnsCMHhSfUcUXgbZsbk/Tivvn/GPyFfAeW3rfvDx05GCfSksAPkUfNjgc0uoYJBB/An2o04Hz"
+    "Bv55BBOOmK/HE/3N0f2On756nafKgwck8E+3am327YSq5BXkmltAAvXjA6U2+Y+WxJIzx0IzX7Il++P45+weW3WN"
+    "zMfl7Gn2AIbPUD/P9abegl9oO49B2p1icvkZAOe/vX45L+Cf2MtZn//Q17XPG3g4zmq9/wAxkheo4BPSrFmBtHDY"
+    "GetQ32PLKknHTHevv4fxT8hl/DPLbr74IyMk+341Pp+FfIA4OfXNVrsEy4xkZzyKtacPmRcH5jzmvxur/BP7Hiv3"
+    "h6la/KuAOo/r0qrqDgA4wPcVatsbDnPPB6Z561V1AjbhsjJ654/Kv2Siv3x/G8/4Z5fPw+dv1FWNP4YAuAp6Y9aq"
+    "3Wd+7lu/T3q1pm7Knv2Ffjdf+Cf2RT+M/9HAsySijnFPu+Uz27gfyqOyHy7skMMdCP8A9VOu8mMnaOMnHY1+cP8A"
+    "jH74l+7NPUNzPweBjHcf56fnTLMZZeMEdcU6+yGwOeRz60WZO8YYgq3OK/qlfwT+Ef8Al4Z1lnC4ON3OM029H7sh"
+    "c9OQetLZZCnr93H0ovCSG5HGCciv5WX8Y/u7/l2aF0TuznkcE1JYKOpfg9Ru71FebQ5wSecYJqWyBDZ+bGAf8+9f"
+    "1TP+Cfwivjsf/9LCtBtBzjPfNQ3xG3aAAfrU9kGKZwQcZI/pUOo7tpzn8a/OIfxj99l8BpXQw+MbSeGwf1qxYgiT"
+    "HTHeq95ksdvByeM1PpwZWU4GD2B/Wv6oqfwT+EIfxDOt3zG25Qp7D0qtqTHaWQna3q36ZqxbbfKzxgdSKr6hjZzx"
+    "gGv5Xor98f3dUt7M0bnAdifXr/n6Vb07hgeAeMVVuR+9zlR26dKt6eu/HAyTjaPX/P8ASv6orfwrn8J0/jP/2Q=="),
+        "6eb71e2ba7ef4c77d72bba218502f30e303e564e5aea744ba839a4191506b60c", (96, 128)),
+    # 112x80 progressive 4:2:0, quality 80
+    "progressive": ((
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsj"
+    "HBYWICwgIyYnKSopGR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgo"
+    "KCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCj/wgARCABQAHADASIAAhEBAxEB/8QAGgAAAgMBAQAAAAAAAAAAAAAA"
+    "AQIAAwYEBf/EABYBAQEBAAAAAAAAAAAAAAAAAAYHBf/aAAwDAQACEAMQAAAB6JDrHc2ZDlH0UhRzjNkE5R9GrKjn"
+    "GcdLDlH0VdlaOceYRB9O6JI9lVAkBVW8gvZVQrKCqvQ9bvZVzpYgKq+sRGExzskOUfRQhHOM4Qxyj6NGVHOM5YjH"
+    "KPo0etHOPMII+nXyF7KuYxQVV6GUvZVQrKCqt7qzyVc9dtYOq+uVZhMc5ATlH0UIRzjOMrHKPoQyI5xnnrc5R9HX"
+    "ZWjnH//EABcQAQEBAQAAAAAAAAAAAAAAAAACATH/2gAIAQEAAQUClS0pUpKVNQxbFKSlSkpUpLFpUrsp5SkpW1LF"
+    "oVykoU1CVKQxaVKSlSkJ5Sks5aVK7KVcpCVNSlaVKSlXKSlbeyxaVKSlakJWpCeWlXKSlSksUpKVpUpKeUpCVqSz"
+    "lv/EABcRAQEBAQAAAAAAAAAAAAAAAABBATH/2gAIAQMBAT8BioreK3iKiozreIqK3jOt4ioqK3iKit4zreP/xAAY"
+    "EQEBAQEBAAAAAAAAAAAAAAAAQjIBAv/aAAgBAgEBPwGkqS5p3LzpSVJU7l50pKkuady86UlSXNO5edKSpLmncvOn"
+    "/8QAFBABAAAAAAAAAAAAAAAAAAAAcP/aAAgBAQAGPwIM/8QAHhABAQEAAwADAQEAAAAAAAAAMQAQAREhIEFhcVH/"
+    "2gAIAQEAAT8hOFOHEJThl36jgwnoZ4Fzlf3HjA9jf7av3LH8wnOMIYOfEI3H2WDLHnjAhz3K79wvvKWBlnzgbl53"
+    "ceI4/DhEn1OEc/ec4bHjltOvDycsC986B+CDc7xn9kr9xyp4PkcOeBuHt07hfaU+8vHF/9oADAMBAAIAAwAAABDO"
+    "wNn9lecVfH8GM2S3gqVMOCeSuf4smcH8Vf8A/8QAGREBAQEBAQEAAAAAAAAAAAAAARAAQSFR/9oACAEDAQE/ECwk"
+    "O98MQcMc9QFhAoCsxwgMJHMRB//EABkRAQEBAQEBAAAAAAAAAAAAAAEQACAxIf/aAAgBAgEBPxBoeJDQ4VDAxi+4"
+    "GBjwoc8z3GAwf//EACQQAAICAgICAwEAAwAAAAAAAAERACExQVFhcYGRofDBsdHx/9oACAEBAAE/EHRoNJzA7enG"
+    "P+GpYEMRhoWhKkDbq4LsizozFzWtQh46McNZIsETKUw/mBYAD4qEWOHAKG8wcBV5GpzUMl7lnvgu4AfL5h0DqkY+"
+    "iAzALVFa31H6DoSrbOCYRsUT1D/gq4NRDIFfviKgNdhT6nFyxskkwwWIEZcMsMVAQEnGZUFqO45RgAHMqtMOEVtu"
+    "Ia4XM898wwL32/iWGh0P37ECwLPk3EAZL54jJh8QiKc4lCURCGYp1KnQoeJzEwhGUpFXDCAGkcwLG2/xhAkQKFNQ"
+    "i104XK9mMiQitGVFeKjooE04JY2hqEVEzTjhGB9mYEGh8RgZJFTAck8ichN/vcVmERpwHY2YRBY38fswDqURO8Zi"
+    "K2NBQTsVuZBO2YCUpEtQ/WpmehCvBb5uMCA8anv4lTp8wRRspiCUtnNy4sE1zABZNAWYJGPcAEE8c1DZn2ZgAoff"
+    "mGC3oAxABB8ah2yXmCwdljuOsmvuGCtA6gFixMmWSUnF6P7gChvzmBV67mh4FXAAuv8AcZCQw/mKgi/f8jUuqSzG"
+    "8ua9wsIZrGY5C1cenDKiOhEJFgbcJMT9R2Jrm8TDBO7gFnRS8RALLA7XqLQLru4AJCC2xuUBRp5qPcMh1qDeTNeY"
+    "SZgnQjEGxyJxFqiYSqL86gUEH1EsFClxOHAhUQgO+ZkaeYJAhA3U/wCDmYdc49wwPiZrOfiWEEBRAAIyMzWQieOI"
+    "aDB3mCgBBKzc0CVkz//Z"),
+        "bdfe84602e1d825e267a60b3556dbbc7467ac5dba16b8e299fdb973a5874a660", (80, 112)),
+}
+DECODE_REPS = 20
+# [procedural]: a bracketed 3D L-system tree (six generations, 15,625
+# segments as six-sided tubes) on the bench scene's floor, environment and
+# sun, rendered at the bench frame's size
+TREE_RULE = 'F -> F[&+!"F][&-!"F][^\\!"F]F'
+TREE_GENERATIONS, TREE_SIDES, TREE_TRIS = 6, 6, 187500
 # [bench]: bench.py's keys and the port's three beside them
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "traced_mrays_s", "rays_per_sample",
               "frame_s", "spp_timed", "card", "block_s", "host_cpus")
@@ -513,7 +626,7 @@ def _launches():
 
 
 def phase_render(sd, device, name_limit):
-    """The bench path; returns its launch counts and film."""
+    """The bench path; returns its launch counts, film and seconds."""
     from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, render
 
     cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
@@ -534,7 +647,7 @@ def phase_render(sd, device, name_limit):
         raise AssertionError("rendered image is not finite, dark or uniform")
     if launches["closest"] == 0 or launches["anyhit"] == 0 or launches["plain"] != 0:
         raise AssertionError(f"bench path did not run through the kernel: {launches}")
-    return launches, film
+    return launches, film, frame_s
 
 
 def phase_route_parity(sd):
@@ -844,12 +957,13 @@ def _blocks(width, height):
     return -(-width * height // PIXEL_CHUNK)
 
 
-def phase_configs(device, out_dir: Path, name_limit) -> dict:
+def phase_configs(device, out_dir: Path, name_limit):
     """Configs 1, 3 and 4 at their configured size, spp and depth, and
     config5 at 1920x1080 x depth 5 cut to CONFIG5_SPP spp, each through the
     traversal kernel (every one has more than DENSE_ACCEL_MAX_TRIS
     triangles) and saved as a PNG through the tone-map kernel; config5 must
-    be built by the native LBVH.  Returns the built Scenes by number."""
+    be built by the native LBVH.  Returns the built Scenes by number and
+    config4's accumulated radiance."""
     from mc_path_tracer_tpu_torch import configs
     from mc_path_tracer_tpu_torch.utils import native
 
@@ -877,7 +991,9 @@ def phase_configs(device, out_dir: Path, name_limit) -> dict:
         _expect(f"config{n} PNG", saved, {"tonemap": 1})
         _check_image(f"config{n}", img)
         scenes[n] = (scene, cam)
-    return scenes
+        if n == 4:
+            frame4 = film.ld
+    return scenes, frame4
 
 
 def phase_golden(scenes, device):
@@ -1127,15 +1243,16 @@ def _frame_pixels(width, height, device):
             torch.from_numpy(pyi.astype(np.float32)).to(device))
 
 
-def _train_step(sd, cam, width, height, px, py, cfg, target, replay=True):
-    """One make_train_step step (key 0) with the launch counts set to 0 and
-    the peak memory reset just before: {loss, grads (the 7 tensors in
-    GRAD_NAMES order), seconds, peak_gb, forward, backward launches}."""
+def _train_step(sd, cam, width, height, px, py, cfg, target, replay=True, mesh=None):
+    """One make_train_step step (key 0, on `mesh` if given) with the launch
+    counts set to 0 and the peak memory reset just before: {loss, grads (the
+    7 tensors in GRAD_NAMES order), seconds, peak_gb, forward, backward
+    launches}."""
     from mc_path_tracer_tpu_torch import make_train_step
     from mc_path_tracer_tpu_torch.models.integrator import camera_params
     from mc_path_tracer_tpu_torch.ops import rng
 
-    step = make_train_step(cfg, width, height, cfg.spp, replay=replay)
+    step = make_train_step(cfg, width, height, cfg.spp, replay=replay, mesh=mesh)
     params = camera_params(cam, width, height, sd.tris.v0.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1653,6 +1770,368 @@ def phase_interactive(device, name_limit) -> None:
         raise AssertionError("the viewer's frame or its ANSI rendering is wrong")
 
 
+# ---------------------------------------------------------------------------
+# Multi-device, image-format and procedural paths: row-sharded frames and
+# steps, two processes on the card, JPEG textures, a procedural scene
+# ---------------------------------------------------------------------------
+
+def _shard_launches(fn):
+    """fn()'s result, with parallel.render's render_tile_radiance wrapped to
+    read the launch counters (host counts, no synchronisation) around each
+    shard's call: (result, [launches of each shard])."""
+    from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
+    from mc_path_tracer_tpu_torch.parallel import render as prender
+
+    inner, shards = prender.render_tile_radiance, []
+
+    def counted(*args, **kwargs):
+        before = dict(LAUNCHES)
+        out = inner(*args, **kwargs)
+        shards.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        return out
+
+    prender.render_tile_radiance = counted
+    try:
+        return fn(), shards
+    finally:
+        prender.render_tile_radiance = inner
+
+
+def phase_sharded(sd, film, render_s, device, out_dir: Path, name_limit) -> dict:
+    """render_sharded of the bench frame on SHARDS shards of the card: the
+    frame must be bit-equal to [render]'s one-device frame (pixel-keyed
+    noise; the per-pixel arithmetic does not depend on the row split); it
+    is saved as a PNG through the tone-map kernel.  Returns its launches."""
+    from mc_path_tracer_tpu_torch.models.film import Film
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+    from mc_path_tracer_tpu_torch.ops import rng
+    from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
+    from mc_path_tracer_tpu_torch.parallel.render import render_sharded
+
+    mesh = make_mesh(devices=[device] * SHARDS)
+    cam = dataclasses.replace(bench_camera(), aspect=WIDTH / HEIGHT).params(device)
+    cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
+    _reset()
+    t0 = time.perf_counter()
+    frame, shards = _shard_launches(
+        lambda: render_sharded(sd, cam, WIDTH, HEIGHT, cfg, rng.prng_key(0), mesh))
+    launches = _launches()
+    seconds = time.perf_counter() - t0
+    equal = bool(torch.equal(frame, film.ld))
+    per = _blocks(WIDTH, HEIGHT // SHARDS) * SPP * (DEPTH - 1)
+    log(f"[sharded] bench {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} on {SHARDS} shards of "
+        f"{device}: frame {seconds:.3f} s against [render]'s {render_s:.3f} s ({name_limit}); "
+        f"launches {launches}, per shard {shards}; bit-equal to the one-device frame {equal}, "
+        f"max abs diff {(frame - film.ld).abs().max().item():.3e}")
+    _expect("sharded bench frame", launches, {"closest": SHARDS * per, "anyhit": SHARDS * per})
+    for i, got in enumerate(shards):
+        _expect(f"sharded bench frame, shard {i}", got, {"closest": per, "anyhit": per})
+    if not equal:
+        raise AssertionError("the sharded bench frame differs from the one-device frame")
+    png = out_dir / "bench_sharded.png"
+    _reset()
+    Film(ld=frame, samples=torch.full((HEIGHT, WIDTH), float(SPP), device=device)).save_png(
+        str(png))
+    saved = _launches()
+    _expect("sharded PNG", saved, {"tonemap": 1})
+    log(f"[sharded] wrote {png} through the tone-map kernel (launches {saved})")
+    return {k: launches[k] + saved[k] for k in launches}
+
+
+def phase_sharded_step(steps: dict, device, name_limit) -> dict:
+    """The config4 train step as configured on SHARDS shards of the card,
+    against [grad]'s one-device config4 step: gradients within
+    GRAD_SHARD_TOL of the largest; the forward launches twice the
+    one-device step's per-sample dispatches over half the pixels each."""
+    from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    rec4, sd4, cam4, w, h, cfg4 = steps["config4"]
+    px, py = _frame_pixels(w, h, device)
+    target = torch.full((w * h, 3), GRAD_TARGET, device=device)
+    mesh = make_mesh(devices=[device] * SHARDS)
+    rec = _train_step(sd4, cam4, w, h, px, py, cfg4, target, mesh=mesh)
+    gap = _grad_gap(rec["grads"], rec4["grads"])
+    log(f"[sharded] config4 train step {w}x{h} {cfg4.spp} spp depth {cfg4.max_depth} on "
+        f"{SHARDS} shards: step {rec['seconds']:.3f} s ({name_limit}), peak "
+        f"{rec['peak_gb']:.3f} GB, loss {rec['loss']:.9g} (one device {rec4['loss']:.9g}); "
+        f"gradients against [grad]'s one-device step: largest gap {gap:.3e} of the largest; "
+        f"launches forward {rec['forward']}, backward {rec['backward']}")
+    per = _blocks(w, h // SHARDS) * cfg4.spp * (cfg4.max_depth - 1)
+    _expect("sharded config4 step forward", rec["forward"],
+            {"closest": SHARDS * per, "anyhit": SHARDS * per})
+    if gap > GRAD_SHARD_TOL or rec["backward"] != rec["forward"]:
+        raise AssertionError("the sharded config4 step differs from the one-device step")
+    return rec["forward"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_multiprocess(frame4, steps: dict, out_dir: Path, name_limit) -> dict:
+    """Two processes on the card joined by gloo (this script re-run with
+    --worker): each renders its rows of config4 with render_sharded_global
+    and runs one sharded train step; rank 0 all-gathers the rows.  The
+    frame must be bit-equal to [configs]' one-device config4 frame and every
+    rank's all-reduced gradients within GRAD_SHARD_TOL of [grad]'s."""
+    rec4 = steps["config4"][0]
+    port, world = _free_port(), 2
+    outs = [out_dir / f"worker{r}.npz" for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--worker", str(r), str(world),
+                               str(port), str(out)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r, out in enumerate(outs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, text in enumerate(logs):
+        for line in text.strip().splitlines()[-12:]:
+            log(f"[multiprocess] rank {r}: {line}")
+    if [p.returncode for p in procs] != [0] * world:
+        raise AssertionError(f"a worker failed: exit codes {[p.returncode for p in procs]}")
+    launches = {}
+    for r, out in enumerate(outs):
+        got = np.load(out, allow_pickle=False)
+        grads = [torch.from_numpy(got[f"g{i}"]) for i in range(len(GRAD_NAMES))]
+        gap = _grad_gap(grads, [g.cpu() for g in rec4["grads"]])
+        rank_launches = json.loads(str(got["launches"]))
+        for k, v in rank_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"[multiprocess] rank {r}: rows {got['rows'].shape[0]}, render "
+            f"{float(got['render_s']):.3f} s, step {float(got['step_s']):.3f} s, loss "
+            f"{float(got['loss']):.9g}; gradients against [grad]'s one-device step: largest gap "
+            f"{gap:.3e} of the largest; gloo with CUDA tensors: {str(got['gloo_cuda'])}; "
+            f"launches {rank_launches} ({name_limit})")
+        if gap > GRAD_SHARD_TOL:
+            raise AssertionError(f"rank {r}'s all-reduced gradients differ from one device")
+        if r == 0:
+            frame = torch.from_numpy(got["frame"]).reshape(frame4.shape)
+            equal = bool(torch.equal(frame, frame4.cpu()))
+            log(f"[multiprocess] rank 0 gathered {tuple(frame.shape)}: bit-equal to the "
+                f"one-device config4 frame {equal}; both ranks in {wall:.3f} s wall")
+            if not equal:
+                raise AssertionError("the two-process config4 frame differs from one device")
+    return launches
+
+
+def phase_nccl(steps: dict, device, name_limit) -> None:
+    """One NCCL rank (world size 1) runs the config4 train step on a mesh of
+    the card: the all-reduce over one rank must leave [grad]'s one-device
+    step bit-equal."""
+    import torch.distributed as dist
+
+    from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    rec4, sd4, cam4, w, h, cfg4 = steps["config4"]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(devices=[device])
+        px, py = _frame_pixels(w, h, device)
+        rec = _train_step(sd4, cam4, w, h, px, py, cfg4,
+                          torch.full((w * h, 3), GRAD_TARGET, device=device), mesh=mesh)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    equal = rec["loss"] == rec4["loss"] and all(
+        torch.equal(a, b) for a, b in zip(rec["grads"], rec4["grads"]))
+    log(f"[multiprocess] {backend} world size 1, config4 step on {mesh.devices}: "
+        f"{rec['seconds']:.3f} s ({name_limit}), loss {rec['loss']:.9g}; bit-equal to the "
+        f"one-device step {equal}; largest gap "
+        f"{_grad_gap(rec['grads'], rec4['grads']):.3e}")
+    if not equal:
+        raise AssertionError("the NCCL world-size-1 step differs from the one-device step")
+
+
+def worker(rank: int, world: int, port: int, out: str, device="cuda:0") -> int:
+    """One rank of [multiprocess]: config4 through render_sharded_global and
+    one sharded train step on a one-shard mesh of the card, the ranks joined
+    by gloo; rank 0 all-gathers the rows (staged through the host here)."""
+    import torch.distributed as dist
+
+    from mc_path_tracer_tpu_torch import configs
+    from mc_path_tracer_tpu_torch.models.integrator import camera_params
+    from mc_path_tracer_tpu_torch.ops import rng
+    from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mc_path_tracer_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from mc_path_tracer_tpu_torch.parallel.render import make_train_step, render_sharded_global
+
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(devices=[device])
+        # does gloo take CUDA tensors?  all_reduce is what make_train_step
+        # calls; all_gather is only probed (the rows below go through the host)
+        probe = {}
+        for name, fn in (
+                ("all_reduce", lambda t: dist.all_reduce(t)),
+                ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)] * world, t))):
+            try:
+                fn(torch.ones(4, device=device))
+                probe[name] = "yes"
+            except RuntimeError as e:   # an unsupported device is refused before any message
+                probe[name] = f"no ({str(e).splitlines()[0][:80]})"
+        scene, cam, cfg, (w, h) = configs.config4_roughness_sweep()
+        sd = scene.build(device)
+        params = camera_params(cam, w, h, device)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = render_sharded_global(sd, params, w, h, cfg, rng.prng_key(0), mesh)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        gathered = [torch.empty_like(rows.cpu()) for _ in range(world)]
+        dist.all_gather(gathered, rows.cpu())
+        px, py = _frame_pixels(w, h, device)
+        step = make_train_step(cfg, w, h, cfg.spp, mesh=mesh)
+        t0 = time.perf_counter()
+        loss, (mat, ls, tex) = step(sd, params, px, py,
+                                    torch.full((w * h, 3), GRAD_TARGET, device=device),
+                                    rng.prng_key(0))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        print(f"rank {rank}: backend {dist.get_backend()}, mesh of {mesh.size} shards, "
+              f"rows {rows.shape[0]}, render {render_s:.3f} s, step {step_s:.3f} s, "
+              f"launches {launches}, gloo with CUDA tensors {probe}", flush=True)
+        np.savez(out, rows=rows.cpu().numpy(), frame=torch.cat(gathered).numpy(),
+                 loss=loss.cpu().numpy(), render_s=render_s, step_s=step_s,
+                 gloo_cuda=json.dumps(probe), launches=json.dumps(launches),
+                 **{f"g{i}": g.cpu().numpy() for i, g in enumerate([*mat, ls, tex])})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_images(device, out_dir: Path, name_limit) -> dict:
+    """The embedded JPEGs decoded on this host must hash as PIL's decode;
+    the test GLB re-written with the baseline JPEG as its base colour
+    texture renders at GLTF_SIZE x GLTF_SIZE under "auto" (the dense
+    kernel) and "pallas" (the traversal kernel), and the two agree as in
+    [gltf].  Returns the two frames' launches."""
+    import base64
+    import hashlib
+
+    from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+    from mc_path_tracer_tpu_torch.utils.jpeg import read_jpeg
+
+    files = {}
+    for name, (b64, sha, (h, w)) in EMBEDDED_JPEGS.items():
+        data = base64.b64decode(b64)
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            img = read_jpeg(data, name)
+        per_mp = (time.perf_counter() - t0) / DECODE_REPS / (h * w / 1e6)
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        log(f"[images] {name} JPEG {w}x{h} ({len(data)} bytes): SHA-256 of the decode "
+            f"{got}, PIL's {sha}: equal {got == sha}; {per_mp:.3f} s per megapixel on this "
+            f"host's CPU (mean of {DECODE_REPS})")
+        if got != sha or img.shape != (h, w, 3):
+            raise AssertionError(f"the {name} JPEG does not decode as PIL decodes it")
+        files[name] = data
+    images = glb_images()
+    images[0] = files["baseline"]
+    path = write_textured_glb(out_dir / "textured_jpeg.glb", images)
+    scene = textured_scene(Scene, path)
+    sd = build_scene("JPEG-textured glTF", scene, device, GLTF_TRIS)
+    cam = textured_camera(PerspectiveCamera)
+    size, spp, depth = GLTF_SIZE, GLTF_SPP, GLTF_DEPTH
+    blocks = _blocks(size, size)
+    closest, anyhit = blocks * spp * (2 * depth - 2), blocks * spp * (depth - 1)
+    frames, launches = {}, {}
+    for accel, names in (("auto", ("dense_closest", "dense_anyhit")),
+                         ("pallas", ("closest", "anyhit"))):
+        film, seconds, got = _frame(sd, cam, size, size,
+                                    RenderConfig(spp=spp, max_depth=depth, accel=accel))
+        img = film.radiance_mean()
+        log(f"[images] JPEG-textured glTF {size}x{size} {spp} spp depth {depth} accel={accel}: "
+            f"frame {seconds:.3f} s ({name_limit}); launches {got}; image mean "
+            f"{img.mean().item():.5f}")
+        _expect(f"JPEG glTF accel={accel}", got, {names[0]: closest, names[1]: anyhit})
+        _check_image(f"JPEG glTF accel={accel}", img)
+        frames[accel] = img
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    agree = _agree(frames["pallas"], frames["auto"], 1e-3)
+    log(f"[images] traversal vs dense route: {agree:.6f} of pixels within rel 1e-3, max abs "
+        f"diff {(frames['pallas'] - frames['auto']).abs().max().item():.3e}")
+    if agree < 0.99:
+        raise AssertionError("the traversal and dense routes disagree on the JPEG glTF scene")
+    return launches
+
+
+def tree_scene(scene_cls, lsystem_cls, turtle_cls, primitives):
+    """The [procedural] scene through a package's API: the L-system tree as
+    one mesh on plane(40.0), under the bench scene's environment and sun."""
+    tree = lsystem_cls(seed=3).set_axiom("F").add_rule(TREE_RULE).build(TREE_GENERATIONS)
+    turtle = turtle_cls(step=0.12, angle=28.0, radius=0.05, radius_decay=0.8,
+                        step_decay=0.9).interpret(tree)
+    p, n, uv, idx = turtle.to_mesh(sides=TREE_SIDES)
+    env = (np.random.default_rng(0).uniform(0.1, 2.0, size=(64, 128, 3)) ** 2).astype(
+        np.float32)
+    s = scene_cls()
+    s.set_environment_hdr(env, ls=1.0)
+    s.add_directional_light((0.4, 1.0, 0.2), color=(1.0, 0.95, 0.8), ls=3.0)
+    fp, fn, fuv, fidx = primitives.plane(40.0)
+    s.add_mesh(fp, fidx, normals=fn, uvs=fuv,
+               material_id=s.add_material(albedo=(0.7, 0.7, 0.7), roughness=0.9))
+    s.add_mesh(p, idx, normals=n, uvs=uv,
+               material_id=s.add_material(albedo=(0.45, 0.32, 0.2), roughness=0.7))
+    return s
+
+
+def tree_camera(camera_cls):
+    return camera_cls(position=np.array([6.0, 4.5, 10.0]), target=np.array([0.0, 3.2, 0.0]),
+                      fov_deg=45.0)
+
+
+def phase_procedural(device, out_dir: Path, name_limit) -> dict:
+    """A procedural tree (LSystem + Turtle.to_mesh, TREE_TRIS triangles)
+    rendered at WIDTH x HEIGHT x SPP x DEPTH through the traversal kernel
+    and saved as a PNG.  Returns its launches."""
+    from mc_path_tracer_tpu_torch.models import primitives
+    from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+    from mc_path_tracer_tpu_torch.models.procedural import LSystem, Turtle
+    from mc_path_tracer_tpu_torch.models.scene import Scene
+
+    t0 = time.perf_counter()
+    scene = tree_scene(Scene, LSystem, Turtle, primitives)
+    host_s = time.perf_counter() - t0
+    sd = build_scene("procedural tree", scene, device, TREE_TRIS + 2)
+    cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
+    film, seconds, got = _frame(sd, tree_camera(PerspectiveCamera), WIDTH, HEIGHT, cfg)
+    img = film.radiance_mean()
+    per = _blocks(WIDTH, HEIGHT) * SPP * (DEPTH - 1)
+    log(f"[procedural] L-system tree, {TREE_GENERATIONS} generations of {TREE_RULE!r}: "
+        f"{TREE_TRIS} tree triangles + 2 floor, built on the host in {host_s:.3f} s; "
+        f"{WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH}: frame {seconds:.3f} s ({name_limit}); "
+        f"launches {got}; image mean {img.mean().item():.5f} std {img.std().item():.5f}")
+    _expect("procedural frame", got, {"closest": per, "anyhit": per})
+    _check_image("procedural frame", img)
+    png = out_dir / "procedural.png"
+    _reset()
+    film.save_png(str(png))
+    saved = _launches()
+    _expect("procedural PNG", saved, {"tonemap": 1})
+    log(f"[procedural] wrote {png} through the tone-map kernel (launches {saved})")
+    return {k: got[k] + saved[k] for k in got}
+
+
 def _paeth(a, b, c):
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
@@ -1781,7 +2260,8 @@ def write_textured_glb(path, images: list[bytes] | None = None) -> Path:
     meshes = [mesh("floor", fp, fn, fuv, fidx, 0, tangents=ftan, interleave=True),
               mesh("ball", sp, sn, suv, sidx, 1),
               mesh("lamp", bp, bn, buv, bidx, 2)]
-    image_json = [{"bufferView": view(data), "mimeType": "image/png", "name": name}
+    image_json = [{"bufferView": view(data), "name": name,
+                   "mimeType": "image/jpeg" if data.startswith(b"\xff\xd8") else "image/png"}
                   for data, name in zip(images, ("base", "mr", "normal", "emissive", "ao"))]
     half = np.radians(20.0) / 2
     gltf = {
@@ -1858,33 +2338,46 @@ def main() -> int:
     parser.add_argument("--png", default="out/config2.png",
                         help="config2's frames go to <stem>_auto.png and <stem>_dense.png; "
                         "the other phases write their PNGs and the test GLB beside them")
+    parser.add_argument("--worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "OUT"),
+                        help="run one rank of [multiprocess] (the script starts these itself)")
     args = parser.parse_args()
+    if args.worker:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
+        rank, world, port, out = args.worker
+        return worker(int(rank), int(world), int(port), out)
     png = Path(args.png)
     name_limit = phase_device()
     png.parent.mkdir(parents=True, exist_ok=True)
+    out_dir = png.parent
     device = torch.device("cuda", 0)
     phase_build()
     sd = phase_scene(device)
     later = []   # device timings, taken after the frames
     stats = phase_kernel_check(sd, device, later, name_limit)
-    bench_launches, film = phase_render(sd, device, name_limit)
+    bench_launches, film, render_s = phase_render(sd, device, name_limit)
     phase_route_parity(sd)
     stats["tonemap"] = phase_tonemap(film, later, name_limit)
+    new_paths = {"sharded": phase_sharded(sd, film, render_s, device, out_dir, name_limit)}
     del sd, film
     sd2, cam2, cfg2 = config2_scene(device)
     stats.update(phase_dense(sd2, cam2, device, later, name_limit))
     area_launches = phase_area(sd2, cam2, cfg2, device, png, name_limit)
     phase_area_scene(device)
-    out_dir = png.parent
-    scenes = phase_configs(device, out_dir, name_limit)
+    scenes, frame4 = phase_configs(device, out_dir, name_limit)
     phase_golden(scenes, device)
     phase_gltf(device, out_dir, name_limit)
+    new_paths["images"] = phase_images(device, out_dir, name_limit)
+    new_paths["procedural"] = phase_procedural(device, out_dir, name_limit)
     phase_reuse(sd2, cam2, cfg2, area_launches["auto"], scenes, device, name_limit)
     phase_progressive(scenes, device, name_limit)
     steps = phase_grad(sd2, cam2, cfg2, device, name_limit)
     phase_grad_check(steps, device, name_limit)
     phase_train(steps, device, name_limit)
-    del scenes, sd2, steps
+    new_paths["sharded_step"] = phase_sharded_step(steps, device, name_limit)
+    new_paths["multiprocess"] = phase_multiprocess(frame4, steps, out_dir, name_limit)
+    phase_nccl(steps, device, name_limit)
+    del scenes, sd2, steps, frame4
     phase_bench(name_limit)
     phase_preview(device, out_dir, name_limit)
     phase_matpreview(device, out_dir, name_limit)
@@ -1905,7 +2398,9 @@ def main() -> int:
          "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"], "bound_by": stats[name]["bound_by"],
          "full_test_bound_ms": stats[name].get("full_test_bound_ms", stats[name]["bound_ms"]),
-         "library_ms": None}
+         "library_ms": None,
+         # launches on this slice's paths, each counted from 0 around its run
+         "new_path_launches": {path: got.get(name, 0) for path, got in new_paths.items()}}
         for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -19,11 +19,14 @@ Layout:
              integrator (with per-sample path replay under autograd),
              preview and debug views, material preview, engine (render
              modes, progressive session), interactive controllers and
-             the terminal viewer.
-  parallel/  the inverse-rendering train step (MaterialGrads,
-             make_train_step); multi-device rendering is not ported yet.
-  utils/     host code: the native builder's binding, image IO (PNG
-             decoding without PIL), mesh attributes, glTF loading, the
+             the terminal viewer, procedural geometry (L-systems, the 3D
+             turtle, curves).
+  parallel/  device meshes over torch.distributed, row-sharded rendering
+             (render_sharded, render_sharded_global) and the
+             inverse-rendering train step (MaterialGrads, make_train_step,
+             one-device or sharded with a gradient all-reduce).
+  utils/     host code: the native BVH library's binding, image IO (PNG and
+             JPEG decoding without PIL), mesh attributes, glTF loading, the
              texture atlas, film and parameter checkpoints, profiling.
   configs.py the five verification configs.
   cli.py     the command line, `python3 -m mc_path_tracer_tpu_torch`.
@@ -43,6 +46,8 @@ _LAZY = {
     "RenderConfig": ("mc_path_tracer_tpu_torch.models.integrator", "RenderConfig"),
     "render": ("mc_path_tracer_tpu_torch.models.integrator", "render"),
     "make_train_step": ("mc_path_tracer_tpu_torch.parallel.render", "make_train_step"),
+    "render_sharded": ("mc_path_tracer_tpu_torch.parallel.render", "render_sharded"),
+    "make_mesh": ("mc_path_tracer_tpu_torch.parallel.mesh", "make_mesh"),
     "render_preview": ("mc_path_tracer_tpu_torch.models.preview", "render_preview"),
     "render_debug": ("mc_path_tracer_tpu_torch.models.preview", "render_debug"),
     "preview_material": ("mc_path_tracer_tpu_torch.models.matpreview", "preview_material"),

@@ -1,2 +1,2 @@
-"""Differentiable train steps (port of mc_path_tracer_tpu/parallel).
-Multi-device rendering waits for ROADMAP Queue 1, multi-device."""
+"""Device meshes, row-sharded rendering and differentiable train steps
+(port of mc_path_tracer_tpu/parallel)."""

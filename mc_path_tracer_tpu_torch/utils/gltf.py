@@ -9,10 +9,10 @@ mc_path_tracer_tpu/utils/gltf.py).
   - UV v-flip.
   - PBR metallic-roughness materials with their five texture slots;
     `reference_material_quirk` overrides roughness / metallic to 1 / 0.
-  - Embedded images are decoded by `utils.image.read_png` (no PIL) to
-    linear float [H, W, 3]; sRGB slots (base colour, emissive) are
-    linearised.  A texture is decoded once per (image, sRGB) pair.  JPEG,
-    interlaced and 16-bit PNG images raise ValueError (ROADMAP Queue 1).
+  - Embedded PNG and JPEG images are decoded by `utils.image.read_png` and
+    `utils.jpeg.read_jpeg` (no PIL) to what PIL's convert("RGB") gives,
+    then to linear float [H, W, 3]; sRGB slots (base colour, emissive) are
+    linearised.  A texture is decoded once per (image, sRGB) pair.
 
 Returns plain numpy arrays; `models.scene.Scene.load` turns them into
 scene objects.
@@ -26,7 +26,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from mc_path_tracer_tpu_torch.utils.image import PNG_SIGNATURE, UNDECODED, read_png
+from mc_path_tracer_tpu_torch.utils.image import PNG_SIGNATURE, read_png
+from mc_path_tracer_tpu_torch.utils.jpeg import JPEG_SIGNATURE, read_jpeg
 from mc_path_tracer_tpu_torch.utils.mesh import compute_tangents, smooth_normals
 
 _COMPONENT_DTYPES = {
@@ -146,16 +147,20 @@ def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
 
 
 def _to_rgb(img: np.ndarray) -> np.ndarray:
-    """uint8 [H, W, C] of read_png as [H, W, 3], as PIL's convert("RGB"):
-    grey replicated, alpha dropped."""
+    """[H, W, C] of read_png as uint8 [H, W, 3], as PIL's convert("RGB"):
+    grey replicated, alpha dropped; 16-bit samples keep their high byte,
+    except 16-bit grey, which PIL opens as mode I;16 and clips to 255."""
+    if img.dtype == np.uint16:
+        img = np.minimum(img, 255) if img.shape[-1] == 1 else img >> 8
+        img = img.astype(np.uint8)
     if img.shape[-1] in (1, 2):
         return np.repeat(img[..., :1], 3, axis=-1)
     return img[..., :3]
 
 
 def _decode_image(gltf: dict, binary: bytes, image_idx: int, srgb: bool):
-    """Decode an embedded glTF image (a PNG in a bufferView) to linear
-    float32 [H, W, 3]; None for an image outside the binary chunk."""
+    """Decode an embedded glTF image (a PNG or JPEG in a bufferView) to
+    linear float32 [H, W, 3]; None for an image outside the binary chunk."""
     img = gltf["images"][image_idx]
     if "bufferView" not in img:
         return None
@@ -163,10 +168,14 @@ def _decode_image(gltf: dict, binary: bytes, image_idx: int, srgb: bool):
     start = view.get("byteOffset", 0)
     raw = binary[start : start + view["byteLength"]]
     name = f"image {image_idx} ({img.get('name') or img.get('mimeType', 'no type')})"
-    if not raw.startswith(PNG_SIGNATURE):
-        kind = "JPEG" if raw.startswith(b"\xff\xd8") else img.get("mimeType", "non-PNG")
-        raise ValueError(f"{name}: {kind} image {UNDECODED}")
-    arr = _to_rgb(read_png(raw, name)).astype(np.float32) / 255.0
+    if raw.startswith(PNG_SIGNATURE):
+        arr = _to_rgb(read_png(raw, name))
+    elif raw.startswith(JPEG_SIGNATURE):
+        arr = read_jpeg(raw, name)
+    else:
+        raise ValueError(f"{name}: {img.get('mimeType', 'unknown')} image: the port decodes "
+                         "PNG and JPEG, the glTF core formats")
+    arr = arr.astype(np.float32) / 255.0
     if srgb:
         arr = _srgb_to_linear(arr).astype(np.float32)
     return arr

@@ -1,11 +1,11 @@
-"""Image IO: Radiance .hdr loading, PNG output and PNG decoding (the port's
+"""Image IO: Radiance .hdr, PNG and JPEG loading, PNG output (the port's
 copy of mc_path_tracer_tpu/utils/image.py's `load_hdr`, `_load_radiance_hdr`
-and `write_png`, and `read_png` for the glTF textures that the JAX package
-decodes with PIL).
+and `write_png`, and `read_png` / utils/jpeg.read_jpeg for the images that
+the JAX package decodes with PIL and imageio).
 
-PNG encoding and decoding use the standard library's zlib, so writing a
-frame or loading a textured glTF scene needs no imaging package; only
-`load_hdr` of a non-.hdr file imports imageio.
+PNG encoding and decoding use the standard library's zlib and JPEG
+decoding is numpy (utils/jpeg.py), so writing a frame, loading a textured
+glTF scene or a PNG / JPEG environment map needs no imaging package.
 """
 
 from __future__ import annotations
@@ -15,19 +15,46 @@ import zlib
 
 import numpy as np
 
+from mc_path_tracer_tpu_torch.utils.jpeg import read_jpeg
+
 
 def load_hdr(path: str) -> np.ndarray:
-    """Load a Radiance .hdr (or other float image) as float32 [H, W, 3]
-    linear RGB.  .hdr goes through the RGBE decoder below: imageio without
-    an HDR plugin decodes Radiance files as 8-bit LDR."""
-    if path.lower().endswith(".hdr"):
+    """Load an environment image as float32 [H, W, 3] (linear RGB for .hdr).
+    .hdr goes through the RGBE decoder below (imageio without an HDR plugin
+    decodes Radiance files as 8-bit LDR).  .png, .jpg and .jpeg give what
+    the JAX package's `imageio.v3.imread(path).astype(float32)` gives, then
+    the same channel handling: raw sample values, not scaled to [0, 1]
+    (_png_as_imageio lists each PNG kind); other formats raise ValueError."""
+    lower = path.lower()
+    if lower.endswith(".hdr"):
         return _load_radiance_hdr(path)
-    import imageio.v3 as iio
-
-    img = np.asarray(iio.imread(path)).astype(np.float32)
+    if not lower.endswith((".png", ".jpg", ".jpeg")):
+        raise ValueError(f"{path}: the port loads .hdr, .png, .jpg and .jpeg environment "
+                         "maps; other formats (which the JAX package reads with imageio) "
+                         "are not decoded")
+    with open(path, "rb") as f:
+        data = f.read()
+    img = _png_as_imageio(data, path) if lower.endswith(".png") else read_jpeg(data, path)
+    img = img.astype(np.float32)
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _png_as_imageio(data: bytes, name: str) -> np.ndarray:
+    """A PNG as imageio's pillow plugin returns it: 1-bit grey as 0 / 1,
+    grey below 16 bits scaled to 0-255, 16-bit grey as uint16 [H, W]; 16-bit
+    RGB and RGBA as their high bytes; grey + alpha [H, W, 2] at 8 bits and
+    RGBA (grey replicated, high bytes) at 16; palette expanded to RGB."""
+    img = read_png(data, name)
+    _, _, depth, ctype, *_ = png_header(data)
+    if ctype == 0:
+        return img[..., 0] // 255 if depth == 1 else img[..., 0]
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+        if ctype == 4:
+            img = img[..., [0, 0, 0, 1]]
+    return img
 
 
 def _load_radiance_hdr(path: str) -> np.ndarray:
@@ -109,19 +136,32 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel (0 grey, 2 RGB, 3 palette, 4 grey+alpha,
-# 6 RGBA)
+# 6 RGBA) and the bit depths the PNG specification allows for it
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-UNDECODED = "not decoded by the port yet (ROADMAP Queue 1, image formats)"
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def png_header(data: bytes) -> tuple[int, ...]:
+    """(width, height, bit depth, colour type, compression, filter,
+    interlace) of a PNG's IHDR chunk, which the specification puts first."""
+    if not data.startswith(PNG_SIGNATURE) or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG image")
+    return struct.unpack(">IIBBBBB", data[16:29])
 
 
 def read_png(data: bytes, name: str = "image") -> np.ndarray:
-    """Decode a PNG to uint8 [H, W, C]: C = 1 grey, 2 grey + alpha, 3 RGB
-    or palette (expanded through PLTE), 4 RGBA.  Handles non-interlaced
-    images of 8 bits per sample (1, 2 and 4 bits for grey and palette) and
-    filter types 0-4; interlaced and 16-bit images raise ValueError naming
-    `name`."""
+    """Decode a PNG to [H, W, C]: C = 1 grey, 2 grey + alpha, 3 RGB or
+    palette (expanded through PLTE), 4 RGBA; uint8, or uint16 for 16-bit
+    images.  Every colour type and bit depth of the specification, filter
+    types 0-4, non-interlaced and Adam7-interlaced (each of the seven passes
+    is unfiltered on its own); grey below 8 bits is scaled to 0-255, as PIL
+    does.  Transparency (tRNS) is not applied.  Malformed data raises
+    ValueError naming `name`."""
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"{name}: not a PNG image; {UNDECODED}")
+        raise ValueError(f"{name}: not a PNG image")
     pos, header, palette, idat = 8, None, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack_from(">I4s", data, pos)
@@ -138,38 +178,53 @@ def read_png(data: bytes, name: str = "image") -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{name}: PNG without IHDR or IDAT")
     w, h, depth, ctype, compression, filt, interlace = header
-    if ctype not in _PNG_CHANNELS or compression != 0 or filt != 0:
+    if ctype not in _PNG_CHANNELS or compression != 0 or filt != 0 or interlace > 1 \
+            or depth not in _PNG_DEPTHS[ctype]:
         raise ValueError(f"{name}: malformed PNG header {header}")
-    if interlace != 0:
-        raise ValueError(f"{name}: interlaced PNG {UNDECODED}")
-    if depth != 8 and not (ctype in (0, 3) and depth in (1, 2, 4)):
-        raise ValueError(f"{name}: {depth}-bit PNG {UNDECODED}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without PLTE")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.zeros((h, w, _PNG_CHANNELS[ctype]), np.uint16 if depth == 16 else np.uint8)
+    offset = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue   # an empty pass has no rows, not even filter bytes
+        samples, offset = _png_pass(raw, offset, pw, ph, depth, ctype, name)
+        out[y0::dy, x0::dx] = samples
+    if ctype == 3:
+        if int(out.max(initial=0)) >= palette.shape[0]:
+            raise ValueError(f"{name}: palette index out of range")
+        out = palette[out[..., 0]]
+    return np.ascontiguousarray(out)
+
+
+def _png_pass(raw: np.ndarray, offset: int, w: int, h: int, depth: int, ctype: int,
+              name: str):
+    """Unfilter and unpack the h rows of w pixels that start at `offset` in
+    the inflated data: (samples [h, w, C], offset after them)."""
     channels = _PNG_CHANNELS[ctype]
     bpp = max(1, depth * channels // 8)          # filter unit in bytes
     stride = (w * channels * depth + 7) // 8     # bytes per row
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (stride + 1):
+    end = offset + h * (stride + 1)
+    if raw.size < end:
         raise ValueError(f"{name}: PNG data ends early")
-    rows = raw[: h * (stride + 1)].reshape(h, stride + 1)
+    rows = raw[offset:end].reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
     for y in range(h):
         out[y] = _unfilter(int(rows[y, 0]), rows[y, 1:], prior, bpp, name)
         prior = out[y]
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, channels), end
     if depth < 8:
         bits = np.unpackbits(out, axis=1).reshape(h, -1, depth)[:, :w]
         out = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
             axis=-1, dtype=np.uint8)
         if ctype == 0:   # scale grey levels to 8 bits
             out = (out.astype(np.uint32) * 255 // ((1 << depth) - 1)).astype(np.uint8)
-    img = out.reshape(h, w, channels)
-    if ctype == 3:
-        if int(img.max(initial=0)) >= palette.shape[0]:
-            raise ValueError(f"{name}: palette index out of range")
-        img = palette[img[..., 0]]
-    return np.ascontiguousarray(img)
+    return out.reshape(h, w, channels), end
 
 
 def _unfilter(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int,

@@ -66,22 +66,54 @@ def _with_header(data: bytes, **fields) -> bytes:
 
 @pytest.mark.parametrize("kind", ["interlaced", "16-bit", "JPEG"])
 def test_undecoded_images_are_refused(kind, tmp_path):
+    """What the port still refuses: an interlace method the PNG
+    specification does not define, a bit depth its colour type does not
+    allow (16-bit palette), and an arithmetic-coded JPEG (ROADMAP Queue 1),
+    which PIL's libjpeg-turbo decodes; a glTF file with that JPEG still
+    loads without textures, as in the JAX package.  Interlaced, 16-bit and
+    JPEG images themselves decode: tests/test_torch_images.py."""
     png = chip_smoke.encode_png(np.zeros((4, 4, 3), np.uint8))
     if kind == "interlaced":
-        with pytest.raises(ValueError, match="interlaced.*ROADMAP Queue 1"):
-            read_png(_with_header(png, interlace=1), "tile.png")
+        with pytest.raises(ValueError, match="tile.png: malformed PNG header"):
+            read_png(_with_header(png, interlace=2), "tile.png")
         return
     if kind == "16-bit":
-        with pytest.raises(ValueError, match="16-bit.*ROADMAP Queue 1"):
-            read_png(_with_header(png, depth=16))
+        pal = chip_smoke.encode_png(np.zeros((4, 4), np.uint8), palette=np.zeros((2, 3)))
+        with pytest.raises(ValueError, match="malformed PNG header"):
+            read_png(_with_header(pal, depth=16))
         return
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
+    sof = buf.getvalue().index(b"\xff\xc0")
     images = chip_smoke.glb_images()
-    images[0] = b"\xff\xd8\xff\xe0" + bytes(60)
+    images[0] = buf.getvalue()[: sof + 1] + b"\xc9" + buf.getvalue()[sof + 2 :]
     path = chip_smoke.write_textured_glb(tmp_path / "jpeg.glb", images)
-    with pytest.raises(ValueError, match="image 0 .*JPEG.*ROADMAP Queue 1"):
+    with pytest.raises(ValueError, match="image 0 .*SOF9 .arithmetic.*ROADMAP Queue 1"):
         tgltf.load_gltf(str(path))
     # without textures the file loads, as in the JAX package
     assert len(tgltf.load_gltf(str(path), load_textures=False).meshes) == 3
+
+
+def test_load_gltf_with_jpeg_and_16_bit_textures_equals_jax(tmp_path):
+    """The test GLB with a progressive 4:2:0 JPEG base colour, a 16-bit
+    RGBA metallic-roughness map and an interlaced normal map: the textures
+    equal the JAX package's (PIL) exactly."""
+    from tests.test_torch_images import encode_png
+
+    r = np.random.default_rng(4)
+    buf = io.BytesIO()
+    Image.fromarray(r.integers(0, 256, (24, 40, 3)).astype(np.uint8)).save(
+        buf, "JPEG", quality=80, subsampling="4:2:0", progressive=True)
+    images = chip_smoke.glb_images()
+    images[0] = buf.getvalue()
+    images[1] = encode_png(r.integers(0, 65536, (16, 16, 4)), 16, filter_type=4)
+    images[2] = encode_png(r.integers(0, 256, (19, 21, 3)), 8, interlace=True, filter_type=3)
+    path = chip_smoke.write_textured_glb(tmp_path / "formats.glb", images)
+    ours, ref = tgltf.load_gltf(str(path)), jgltf.load_gltf(str(path))
+    assert len(ours.textures) == len(ref.textures) == 5
+    for a, b in zip(ours.textures, ref.textures):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.fixture(scope="module")

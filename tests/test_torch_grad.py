@@ -39,6 +39,7 @@ from mc_path_tracer_tpu_torch.ops import envmap as tenv
 from mc_path_tracer_tpu_torch.ops import rng as trng
 from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
 from mc_path_tracer_tpu_torch.parallel import render as tpar
+from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
 from mc_path_tracer_tpu_torch.utils import checkpoint as tckpt
 from tests.test_torch_scene import small_scene
 
@@ -224,8 +225,15 @@ def test_unreached_parameters_get_zeros(train_steps):
 
 
 def test_make_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1, multi-device"):
-        make_train_step(tint.RenderConfig(), W, H, 1, mesh=object())
+    """A mesh whose shard count does not divide the pixels is refused, as
+    JAX's shard_map refuses it (sharded steps: tests/test_torch_parallel.py)."""
+    _, tsd, _, tcam = scenes("small_scene")
+    px, py = (torch.from_numpy(v) for v in pixels())
+    step = make_train_step(tint.RenderConfig(spp=1, max_depth=2), W, H, 1,
+                           mesh=make_mesh(devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="64 rows not divisible by mesh size 3"):
+        step(tsd, tint.camera_params(tcam, W, H, "cpu"), px, py, torch.zeros(W * H, 3),
+             trng.prng_key(0))
 
 
 def _step_launches(step, *args):

@@ -1,11 +1,15 @@
 """The port stands alone: in a fresh interpreter, import every module of
 mc_path_tracer_tpu_torch, render an 8x8 frame of a scene with an area light
-and an 8x8 frame of one with a directional light on the CPU, run the
+and an 8x8 frame of one with a directional light on the CPU, render the
+latter again on a 2-shard CPU mesh (parallel/mesh.py, render_sharded),
+build a procedural turtle mesh (models/procedural.py), decode
+chip_smoke.py's embedded JPEGs (utils/jpeg.py) to PIL's hashes, run the
 command line (`python3 -m mc_path_tracer_tpu_torch`) in the path tracer and
 the preview and the benchmark's main (which refuses to run without a card),
 and check that
 no module of JAX and none of the JAX package (mc_path_tracer_tpu) was
-loaded (the GPU machine that runs the port has no JAX).  No source of the
+loaded (the GPU machine that runs the port has no JAX), nor PIL (it has no
+imaging package either).  No source of the
 port names the JAX package outside comments and docstrings, and the port
 builds nothing inside it.  Entry points default to the card and raise
 without one.  A changed kernel header renames the kernel's library."""
@@ -45,8 +49,27 @@ s.add_mesh(p, idx, normals=n, uvs=uv, material_id=s.add_material(roughness=0.9))
 p, n, uv, idx = uv_sphere(0.8, center=(0, 0.8, 0), rings=6, segments=8)
 s.add_mesh(p, idx, normals=n, uvs=uv, material_id=s.add_material(albedo=(0.8, 0.3, 0.2)))
 cam = PerspectiveCamera(position=np.array([0.5, 2.5, 4.0]), target=np.array([0.0, 0.6, 0.0]))
-img = render(s, cam, 8, 8, RenderConfig(spp=1, max_depth=3), device="cpu").radiance_mean()
+film = render(s, cam, 8, 8, RenderConfig(spp=1, max_depth=3), device="cpu")
+img = film.radiance_mean()
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all()) and float(img.mean()) > 0
+# the same frame on a 2-shard CPU mesh, bit for bit
+import dataclasses
+from mc_path_tracer_tpu_torch import make_mesh, render_sharded
+from mc_path_tracer_tpu_torch.ops import rng
+sharded = render_sharded(s.build("cpu"), dataclasses.replace(cam, aspect=1.0).params("cpu"), 8, 8,
+                         RenderConfig(spp=1, max_depth=3), rng.prng_key(0),
+                         make_mesh(devices=["cpu"] * 2))
+assert bool((sharded == film.ld).all())
+# a procedural mesh, and the embedded JPEGs decoded as PIL decodes them
+from mc_path_tracer_tpu_torch.models.procedural import LSystem, Turtle
+mods = LSystem(seed=1).set_axiom("F").add_rule("F -> F[+F]F[-F]F").build(2)
+p, n, uv, idx = Turtle(step=0.5).interpret(mods).to_mesh(sides=4)
+assert idx.shape == (25 * 8, 3)
+import base64, hashlib
+import chip_smoke
+from mc_path_tracer_tpu_torch.utils.jpeg import read_jpeg
+for b64, sha, size in chip_smoke.EMBEDDED_JPEGS.values():
+    assert hashlib.sha256(read_jpeg(base64.b64decode(b64)).tobytes()).hexdigest() == sha
 # an area_scene-style frame: floor and an emissive quad facing down, black env
 a = Scene()
 a.set_environment_color((0, 0, 0), ls=0.0)
@@ -85,6 +108,7 @@ print("JAX_MODULES", loaded)
 ref = sorted(m for m in sys.modules
              if m == "mc_path_tracer_tpu" or m.startswith("mc_path_tracer_tpu."))
 print("REFERENCE_MODULES", ref)
+print("PIL_MODULES", sorted(m for m in sys.modules if m == "PIL" or m.startswith("PIL.")))
 """
 
 
@@ -99,6 +123,7 @@ def test_port_imports_and_renders_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
     assert "REFERENCE_MODULES []" in proc.stdout, proc.stdout
+    assert "PIL_MODULES []" in proc.stdout, proc.stdout
 
 
 _IMPORT = re.compile(r"^\s*(from\s+mc_path_tracer_tpu(\.|\s)|import\s+mc_path_tracer_tpu(\.|\s|$))",
