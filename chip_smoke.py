@@ -17,9 +17,10 @@ fails unless each dispatch went through the expected kernel:
   [parity]          kernel route against plain route on a 64x64 crop
   [tonemap]         the tone-map kernel against plain on the bench film
   [sharded]         render_sharded of the bench frame on two shards of the
-                    card (make_mesh(devices=["cuda:0"] * 2)): bit-equal to
-                    [render]'s frame, seconds beside [render]'s, launches
-                    per shard, saved as a PNG
+                    card (make_mesh(devices=["cuda:0"] * 2)), the shards
+                    enqueued in turn: bit-equal to [render]'s frame, seconds
+                    beside [render]'s, exact launches per shard (counted
+                    around each shard's call), saved as a PNG
   [dense]           config2 (2,320 triangles, emissive quad): the dense
                     kernel against plain on 65,536 camera rays and 65,536
                     bounded shadow rays toward the quad
@@ -68,7 +69,9 @@ fails unless each dispatch went through the expected kernel:
   [train]           five SGD steps on config4's albedo: the loss falls at
                     every step
   [sharded]         config4's train step on two shards of the card: its
-                    gradients within 1e-5 of [grad]'s one-device step
+                    gradients within 1e-5 of [grad]'s one-device step, exact
+                    forward launches per shard (rows cut on the frame's
+                    block grid), forward seconds
   [multiprocess]    two processes on the card joined by gloo (this script
                     re-run with --worker): render_sharded_global of config4
                     and a sharded train step per rank; rank 0's all-gathered
@@ -957,6 +960,18 @@ def _blocks(width, height):
     return -(-width * height // PIXEL_CHUNK)
 
 
+def _shard_blocks(width, height, shards) -> list[int]:
+    """Blocks of each of `shards` equal row ranges of a width x height
+    frame, cut on the whole frame's block grid (render_tile_radiance's
+    `first`, as a sharded train step cuts them): a block that a shard's
+    edge cuts runs in both shards."""
+    from mc_path_tracer_tpu_torch.models.integrator import PIXEL_CHUNK
+
+    rows = width * height // shards
+    return [len({0, *range(-(g * rows) % PIXEL_CHUNK, rows, PIXEL_CHUNK)})
+            for g in range(shards)]
+
+
 def phase_configs(device, out_dir: Path, name_limit):
     """Configs 1, 3 and 4 at their configured size, spp and depth, and
     config5 at 1920x1080 x depth 5 cut to CONFIG5_SPP spp, each through the
@@ -1266,7 +1281,7 @@ def _train_step(sd, cam, width, height, px, py, cfg, target, replay=True, mesh=N
     grads = [*mat, ls, tex]
     if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError("a train step gave a loss or a gradient that is not finite")
-    return dict(loss=loss.item(), grads=grads, seconds=seconds,
+    return dict(loss=loss.item(), grads=grads, seconds=seconds, forward_s=step.forward_seconds,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, forward=forward,
                 backward={k: total[k] - forward[k] for k in total})
 
@@ -1277,13 +1292,10 @@ def _l1(grads) -> str:
 
 def _grad_gap(a, b) -> float:
     """The largest gap between two gradient lists, each tensor's gap as a
-    share of b's largest magnitude (0 where both are 0)."""
-    gaps = [0.0]
-    for x, y in zip(a, b):
-        scale = y.abs().max().item() if y.numel() else 0.0
-        gap = (x - y).abs().max().item() if y.numel() else 0.0
-        gaps.append(gap / scale if scale > 0 else (0.0 if gap == 0 else float("inf")))
-    return max(gaps)
+    share of b's largest magnitude (bench_scaling.grad_gap)."""
+    from mc_path_tracer_tpu_torch.bench_scaling import grad_gap
+
+    return grad_gap(a, b)
 
 
 def phase_grad(sd2, cam2, cfg2, device, name_limit) -> dict:
@@ -1775,33 +1787,13 @@ def phase_interactive(device, name_limit) -> None:
 # steps, two processes on the card, JPEG textures, a procedural scene
 # ---------------------------------------------------------------------------
 
-def _shard_launches(fn):
-    """fn()'s result, with parallel.render's render_tile_radiance wrapped to
-    read the launch counters (host counts, no synchronisation) around each
-    shard's call: (result, [launches of each shard])."""
-    from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
-    from mc_path_tracer_tpu_torch.parallel import render as prender
-
-    inner, shards = prender.render_tile_radiance, []
-
-    def counted(*args, **kwargs):
-        before = dict(LAUNCHES)
-        out = inner(*args, **kwargs)
-        shards.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
-        return out
-
-    prender.render_tile_radiance = counted
-    try:
-        return fn(), shards
-    finally:
-        prender.render_tile_radiance = inner
-
-
 def phase_sharded(sd, film, render_s, device, out_dir: Path, name_limit) -> dict:
     """render_sharded of the bench frame on SHARDS shards of the card: the
     frame must be bit-equal to [render]'s one-device frame (pixel-keyed
     noise; the per-pixel arithmetic does not depend on the row split); it
-    is saved as a PNG through the tone-map kernel.  Returns its launches."""
+    is saved as a PNG through the tone-map kernel.  Returns its launches
+    and each shard's: {path: launches}."""
+    from mc_path_tracer_tpu_torch.bench_scaling import shard_launches
     from mc_path_tracer_tpu_torch.models.film import Film
     from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
     from mc_path_tracer_tpu_torch.ops import rng
@@ -1813,7 +1805,7 @@ def phase_sharded(sd, film, render_s, device, out_dir: Path, name_limit) -> dict
     cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
     _reset()
     t0 = time.perf_counter()
-    frame, shards = _shard_launches(
+    frame, shards = shard_launches(
         lambda: render_sharded(sd, cam, WIDTH, HEIGHT, cfg, rng.prng_key(0), mesh))
     launches = _launches()
     seconds = time.perf_counter() - t0
@@ -1835,33 +1827,43 @@ def phase_sharded(sd, film, render_s, device, out_dir: Path, name_limit) -> dict
     saved = _launches()
     _expect("sharded PNG", saved, {"tonemap": 1})
     log(f"[sharded] wrote {png} through the tone-map kernel (launches {saved})")
-    return {k: launches[k] + saved[k] for k in launches}
+    return {"sharded": {k: launches[k] + saved[k] for k in launches},
+            **{f"sharded_shard{i}": got for i, got in enumerate(shards)}}
 
 
 def phase_sharded_step(steps: dict, device, name_limit) -> dict:
     """The config4 train step as configured on SHARDS shards of the card,
     against [grad]'s one-device config4 step: gradients within
-    GRAD_SHARD_TOL of the largest; the forward launches twice the
-    one-device step's per-sample dispatches over half the pixels each."""
+    GRAD_SHARD_TOL of the largest; each shard's forward launches the
+    one-device step's per-sample dispatches over the blocks of its rows
+    (cut on the frame's grid).  Returns the forward's launches and each
+    shard's: {path: launches}."""
+    from mc_path_tracer_tpu_torch.bench_scaling import shard_launches
     from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
 
     rec4, sd4, cam4, w, h, cfg4 = steps["config4"]
     px, py = _frame_pixels(w, h, device)
     target = torch.full((w * h, 3), GRAD_TARGET, device=device)
     mesh = make_mesh(devices=[device] * SHARDS)
-    rec = _train_step(sd4, cam4, w, h, px, py, cfg4, target, mesh=mesh)
+    rec, shards = shard_launches(
+        lambda: _train_step(sd4, cam4, w, h, px, py, cfg4, target, mesh=mesh))
     gap = _grad_gap(rec["grads"], rec4["grads"])
     log(f"[sharded] config4 train step {w}x{h} {cfg4.spp} spp depth {cfg4.max_depth} on "
-        f"{SHARDS} shards: step {rec['seconds']:.3f} s ({name_limit}), peak "
-        f"{rec['peak_gb']:.3f} GB, loss {rec['loss']:.9g} (one device {rec4['loss']:.9g}); "
-        f"gradients against [grad]'s one-device step: largest gap {gap:.3e} of the largest; "
-        f"launches forward {rec['forward']}, backward {rec['backward']}")
-    per = _blocks(w, h // SHARDS) * cfg4.spp * (cfg4.max_depth - 1)
+        f"{SHARDS} shards: step {rec['seconds']:.3f} s (forward {rec['forward_s']:.3f} s) "
+        f"({name_limit}), peak {rec['peak_gb']:.3f} GB, loss {rec['loss']:.9g} (one device "
+        f"{rec4['loss']:.9g}); gradients against [grad]'s one-device step: largest gap "
+        f"{gap:.3e} of the largest; launches forward {rec['forward']}, per shard {shards}, "
+        f"backward {rec['backward']}")
+    per = [n * cfg4.spp * (cfg4.max_depth - 1) for n in _shard_blocks(w, h, SHARDS)]
     _expect("sharded config4 step forward", rec["forward"],
-            {"closest": SHARDS * per, "anyhit": SHARDS * per})
+            {"closest": sum(per), "anyhit": sum(per)})
+    for i, got in enumerate(shards):
+        _expect(f"sharded config4 step forward, shard {i}", got,
+                {"closest": per[i], "anyhit": per[i]})
     if gap > GRAD_SHARD_TOL or rec["backward"] != rec["forward"]:
         raise AssertionError("the sharded config4 step differs from the one-device step")
-    return rec["forward"]
+    return {"sharded_step": rec["forward"],
+            **{f"sharded_step_shard{i}": got for i, got in enumerate(shards)}}
 
 
 def _free_port() -> int:
@@ -2358,7 +2360,7 @@ def main() -> int:
     bench_launches, film, render_s = phase_render(sd, device, name_limit)
     phase_route_parity(sd)
     stats["tonemap"] = phase_tonemap(film, later, name_limit)
-    new_paths = {"sharded": phase_sharded(sd, film, render_s, device, out_dir, name_limit)}
+    new_paths = phase_sharded(sd, film, render_s, device, out_dir, name_limit)
     del sd, film
     sd2, cam2, cfg2 = config2_scene(device)
     stats.update(phase_dense(sd2, cam2, device, later, name_limit))
@@ -2374,7 +2376,7 @@ def main() -> int:
     steps = phase_grad(sd2, cam2, cfg2, device, name_limit)
     phase_grad_check(steps, device, name_limit)
     phase_train(steps, device, name_limit)
-    new_paths["sharded_step"] = phase_sharded_step(steps, device, name_limit)
+    new_paths.update(phase_sharded_step(steps, device, name_limit))
     new_paths["multiprocess"] = phase_multiprocess(frame4, steps, out_dir, name_limit)
     phase_nccl(steps, device, name_limit)
     del scenes, sd2, steps, frame4

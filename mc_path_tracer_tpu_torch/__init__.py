@@ -32,6 +32,9 @@ Layout:
   cli.py     the command line, `python3 -m mc_path_tracer_tpu_torch`.
   bench.py   the benchmark of the main path,
              `python3 -m mc_path_tracer_tpu_torch.bench`.
+  bench_scaling.py  the frame and train step over 1, 2 and 4 cards, in
+             one process and on one process per card,
+             `python3 -m mc_path_tracer_tpu_torch.bench_scaling`.
 
 This package imports torch and numpy, never jax and nothing of the JAX
 package.

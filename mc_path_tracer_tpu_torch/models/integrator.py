@@ -421,18 +421,25 @@ def _requires_grad(*trees) -> bool:
 def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
                          width: int, height: int, px: torch.Tensor,
                          py: torch.Tensor, key: torch.Tensor, cfg: RenderConfig,
-                         spp: int | None = None, replay: bool = True) -> torch.Tensor:
+                         spp: int | None = None, replay: bool = True,
+                         first: int = 0) -> torch.Tensor:
     """Radiance summed over `spp` samples for pixels (px, py) [R] (f32
     pixel coordinates), [R, 3].  The pixels run in PIXEL_CHUNK-ray blocks,
     each through every sample before the next block starts, so live state
     stays bounded by the block.  Under autograd each sample is replayed in
     the backward (module docstring) unless `replay=False`, which keeps every
-    sample's graph alive until the backward instead."""
+    sample's graph alive until the backward instead.  `first` is px[0]'s
+    index in a longer pixel list that is rendered in parts (a shard's rows):
+    blocks are cut at multiples of PIXEL_CHUNK of that list, so each part
+    runs the whole list's blocks (one cut by a part's edge runs as two),
+    and a gradient summed over the parts adds the same per-block sums."""
     spp = cfg.spp if spp is None else spp
     replay = replay and torch.is_grad_enabled() and _requires_grad(scene, camera)
+    r = px.shape[0]
+    cuts = sorted({0, *range(-first % PIXEL_CHUNK, r, PIXEL_CHUNK)}) + [r]
     blocks = []
-    for s0 in range(0, px.shape[0], PIXEL_CHUNK):
-        px_c, py_c = px[s0 : s0 + PIXEL_CHUNK], py[s0 : s0 + PIXEL_CHUNK]
+    for s0, s1 in zip(cuts[:-1], cuts[1:]):
+        px_c, py_c = px[s0:s1], py[s0:s1]
         acc = torch.zeros((px_c.shape[0], 3), dtype=torch.float32, device=px.device)
         for s in range(spp):
             args = (scene, cfg, camera, width, height, px_c, py_c, key, s)

@@ -9,11 +9,14 @@ ordered list of this process's shard devices (repeats allowed, so one card
 or the CPU can hold n shards, as XLA's virtual host devices do), plus the
 torch.distributed process group when one is initialised.  Globally the
 shards are numbered rank-major, then shard-major: process r's i-th shard
-is shard r * len(devices) + i of rank_count * len(devices).
+is shard r * len(devices) + i of rank_count * len(devices).  As JAX's
+addressable devices are a process's own, a process in a group owns one
+card, cuda:LOCAL_RANK (torchrun's numbering of the processes on a host).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -45,25 +48,45 @@ class Mesh:
         return range(first, first + len(self.devices))
 
 
+def _grouped() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def local_card() -> int:
+    """This process's card in a group: LOCAL_RANK as torchrun sets it, else
+    the rank modulo the host's cards (processes numbered host by host)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return dist.get_rank() % max(torch.cuda.device_count(), 1)
+
+
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """1-D mesh over the film-row axis.  `devices` lists the shards' devices
     (repeats allowed, e.g. ["cuda:0"] * 2); without it the mesh takes the
     first `n_devices` cards (all of them by default), and raises if there
     are fewer.  On the CPU pass devices=["cpu"] * n.  The mesh spans every
     process of the default torch.distributed group when one is
-    initialised (init_distributed)."""
+    initialised (init_distributed); without `devices` each process then
+    takes its own card (local_card()), one shard, as JAX's addressable
+    devices."""
+    count = torch.cuda.device_count()
+    if devices is None and _grouped():
+        first, n = local_card(), 1 if n_devices is None else n_devices
+        if n != 1:
+            raise ValueError(f"make_mesh: a process of a group owns one card, {n} asked "
+                             "for; pass devices=[...] to give it others")
+    elif devices is None:
+        first, n = 0, count if n_devices is None else n_devices
     if devices is None:
-        count = torch.cuda.device_count()
-        n = count if n_devices is None else n_devices
-        if n < 1 or n > count:
+        if n < 1 or first + n > count:
             raise ValueError(
-                f"make_mesh: {n} CUDA devices asked for, {count} available; pass "
-                "devices=['cpu'] * n for a CPU mesh or repeat a card for several shards")
-        devices = [f"cuda:{i}" for i in range(n)]
+                f"make_mesh: {n} CUDA devices asked for from cuda:{first}, {count} available; "
+                "pass devices=['cpu'] * n for a CPU mesh or repeat a card for several shards")
+        devices = [f"cuda:{i}" for i in range(first, first + n)]
     devices = tuple(resolve_device(d) for d in devices)
     if not devices:
         raise ValueError("make_mesh: a mesh needs at least one device")
-    if dist.is_available() and dist.is_initialized():
+    if _grouped():
         return Mesh(devices, dist.group.WORLD, dist.get_world_size(), dist.get_rank())
     return Mesh(devices)
 
@@ -103,14 +126,25 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
                      process_id: int | None = None, backend: str | None = None,
                      device=DEFAULT_DEVICE) -> None:
     """Join `num_processes` processes at `coordinator` ("host:port") with
-    torch.distributed; a no-op for one process.  The backend is NCCL for a
-    mesh on the card (`device`, the card by default) and gloo for a CPU
-    mesh, unless `backend` names one; several processes on one card must
-    pass backend="gloo" (NCCL refuses two ranks on one GPU), and nothing
-    switches backend by itself."""
+    torch.distributed; a no-op for one process.  Called with no coordinator
+    it reads torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT), as jax.distributed.initialize() detects its cluster; a
+    no-op when WORLD_SIZE is unset or 1.  The backend is NCCL for a mesh on
+    the card (`device`, the card by default), one process per card, and
+    gloo for a CPU mesh, unless `backend` names one; several processes on
+    one card must pass backend="gloo" (NCCL refuses two ranks on one GPU),
+    and nothing switches backend by itself.  Under NCCL the process's card
+    (local_card()) becomes its current device."""
+    if coordinator is None and num_processes is None:
+        num_processes = int(os.environ.get("WORLD_SIZE", "1"))
+        init = dict(init_method="env://")
+    else:
+        init = dict(init_method=f"tcp://{coordinator}", world_size=num_processes,
+                    rank=process_id)
     if num_processes is None or num_processes <= 1:
         return
     if backend is None:
         backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+    dist.init_process_group(backend, **init)
+    if backend == "nccl":
+        torch.cuda.set_device(local_card())

@@ -9,7 +9,13 @@ its rows are split.  A train step runs each shard's forward and replayed
 backward, sums the parameter gradients over the process's shards, then
 all-reduces them over the process group when there is one: the all-reduce
 that the transpose of JAX's shard_map inserts.  The shards of one process
-are enqueued in turn from one host thread.
+are enqueued in turn from one host thread.  The frame is launch-bound on
+the host, so the cards of one process share that thread's time: the
+route on which several cards work at once is one process per card
+(render_sharded_global under torchrun, as bench_scaling.py runs it).  A
+train step's shards cut their rows on the whole frame's block grid
+(render_tile_radiance's `first`), so that their gradients add the
+one-device step's per-block sums.
 
 `render_sharded` is the multi-device PathTracer::render_image;
 `render_sharded_global` is its multi-process form; `make_train_step` builds
@@ -20,6 +26,7 @@ several processes on one card (gloo reduces CUDA tensors itself).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -30,7 +37,7 @@ from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, render_tile
 from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import rng
 from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
-from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh, replicated, tile_sharding
+from mc_path_tracer_tpu_torch.parallel.mesh import Mesh, make_mesh, replicated, tile_sharding
 
 
 class MaterialGrads(NamedTuple):
@@ -70,6 +77,11 @@ def _pixel_grid(width: int, height: int):
     return xs.reshape(-1).to(torch.float32), ys.reshape(-1).to(torch.float32)
 
 
+def _firsts(mesh: Mesh, rows: int) -> list[int]:
+    """Each local shard's first row in the whole [rows] list."""
+    return [g * (rows // mesh.size) for g in mesh.local_shards()]
+
+
 def _render_rows(scene_data, camera, width, height, cfg, key, mesh) -> torch.Tensor:
     """Radiance summed over cfg.spp samples for this process's shards' rows
     of the row-major frame, [rows, 3] on the mesh's first device."""
@@ -80,10 +92,11 @@ def _render_rows(scene_data, camera, width, height, cfg, key, mesh) -> torch.Ten
     if not isinstance(camera, camera_mod.CameraParams):
         camera = camera.params(mesh.devices[0])
     px, py = _pixel_grid(width, height)
+    # the key stays where it is: its words are read on the host
     shards = zip(replicated(mesh, scene_data), replicated(mesh, camera),
-                 replicated(mesh, key), tile_sharding(mesh, px), tile_sharding(mesh, py))
-    rows = [render_tile_radiance(sd, cam, width, height, pxs, pys, k, cfg, cfg.spp)
-            for sd, cam, k, pxs, pys in shards]
+                 tile_sharding(mesh, px), tile_sharding(mesh, py))
+    rows = [render_tile_radiance(sd, cam, width, height, pxs, pys, key, cfg, cfg.spp)
+            for sd, cam, pxs, pys in shards]
     return torch.cat([r.to(mesh.devices[0]) for r in rows], dim=0)
 
 
@@ -133,31 +146,36 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
     (for comparisons; it needs spp times the memory).
     `train_step.forward_launches` holds ops.kernels.LAUNCHES as the last
     call's forward ended (every shard's); LAUNCHES minus it are its
-    backward's launches (the replayed samples')."""
+    backward's launches (the replayed samples').
+    `train_step.forward_seconds` is the last call's host seconds up to the
+    end of its forward's launches (no synchronisation: a card may still be
+    at that work); the rest of the call is the backward and the all-reduce."""
 
     def train_step(scene: SceneData, cam, px, py, target, key):
+        t0 = time.perf_counter()
         if mesh is None:
             device = scene.tris.v0.device
-            shards = [(scene, cam, key, px, py, target)]
+            shards = [(scene, cam, px, py, target, 0)]
         else:
             device = mesh.devices[0]
             shards = list(zip(replicated(mesh, scene), replicated(mesh, cam),
-                              replicated(mesh, key), tile_sharding(mesh, px),
-                              tile_sharding(mesh, py), tile_sharding(mesh, target)))
+                              tile_sharding(mesh, px), tile_sharding(mesh, py),
+                              tile_sharding(mesh, target), _firsts(mesh, px.shape[0])))
         leaves, losses = [], []
         with torch.enable_grad():
-            for sd, c, k, pxs, pys, tgt in shards:
+            for sd, c, pxs, pys, tgt, first in shards:
                 mat, ls, tex = scene_params(sd)
                 own = [p.detach().requires_grad_(True) for p in (*mat, ls, tex)]
                 params = (MaterialGrads(*own[:5]), own[5], own[6])
-                acc = render_tile_radiance(with_params(sd, params), c, width, height,
-                                           pxs, pys, k, cfg, spp, replay=replay)
+                acc = render_tile_radiance(with_params(sd, params), c, width, height, pxs,
+                                           pys, key, cfg, spp, replay=replay, first=first)
                 loss = torch.mean((acc / spp - tgt) ** 2)
                 if mesh is not None and mesh.size > 1:
                     loss = loss * (pxs.shape[0] / px.shape[0])
                 leaves.append(own)
                 losses.append(loss.to(device))
             train_step.forward_launches.update(LAUNCHES)
+            train_step.forward_seconds = time.perf_counter() - t0
             flat = [p for own in leaves for p in own]
             loss = sum(losses[1:], losses[0])
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -172,6 +190,7 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
         return loss, (MaterialGrads(*summed[:5]), summed[5], summed[6])
 
     train_step.forward_launches = {}
+    train_step.forward_seconds = None
     return train_step
 
 

@@ -407,6 +407,42 @@ def test_build_distribution_traced():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
 
 
+CDF_EPS = 1e-6      # central-difference step on each texel channel, float64
+CDF_RTOL = 1e-6     # gap allowed, as a share of the largest gradient
+
+
+def test_build_distribution_traced_column_cdf_gradient():
+    """The gradient of the column CDFs w.r.t. the texels, which jax.grad
+    cannot give on the CPU (test above), against central differences of
+    the port's own build, every texel channel, in float64 (the function
+    keeps the texels' dtype; only its sin(pi v) row weights are float32
+    constants).  eps 1e-6: the truncation error is ~eps^2 and the rounding
+    error ~1e-16 / eps, both far under CDF_RTOL of the largest gradient.
+    The pole row (sin 0 = 0) has zero column CDFs and zero gradient."""
+    rs = np.random.default_rng(4)
+    tex = rs.uniform(0.05, 2.0, (6, 10, 3)) ** 2
+    tex[3, 7] = 30.0
+    weights = torch.from_numpy(rs.normal(size=(6, 10)))
+
+    def loss(t):
+        return (tenv.build_distribution_traced(t).cond_cdf * weights).sum()
+
+    tt = torch.from_numpy(tex).requires_grad_(True)
+    (got,) = torch.autograd.grad(loss(tt), [tt])
+    want = np.zeros_like(tex)
+    with torch.no_grad():
+        for idx in np.ndindex(tex.shape):
+            up, down = tex.copy(), tex.copy()
+            up[idx] += CDF_EPS
+            down[idx] -= CDF_EPS
+            want[idx] = (float(loss(torch.from_numpy(up)))
+                         - float(loss(torch.from_numpy(down)))) / (2 * CDF_EPS)
+    scale = np.abs(want).max()
+    assert got.dtype == torch.float64 and scale > 0
+    assert np.abs(got.numpy() - want).max() <= CDF_RTOL * scale
+    assert np.abs(got.numpy()[0]).max() == 0.0
+
+
 def _params(seed):
     """Train-step parameters of distinct values: (MaterialGrads, ls, tex)."""
     rs = np.random.default_rng(seed)

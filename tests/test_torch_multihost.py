@@ -27,12 +27,14 @@ TIMEOUT_S = 120
 GRAD_TOL = 1e-5
 
 
-def scene_and_camera():
+def host_scene(scene_cls=None):
+    """The scene and camera on the host: (Scene, PerspectiveCamera), the
+    scene through `scene_cls`'s API (the port's Scene by default)."""
     from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera
     from mc_path_tracer_tpu_torch.models.primitives import plane, uv_sphere
     from mc_path_tracer_tpu_torch.models.scene import Scene
 
-    s = Scene()
+    s = (scene_cls or Scene)()
     s.set_environment_color((0.4, 0.5, 0.7), ls=1.0)
     s.add_directional_light((0.3, 1.0, 0.2), ls=2.0)
     m0 = s.add_material(albedo=(0.8, 0.3, 0.2), roughness=0.5)
@@ -41,9 +43,13 @@ def scene_and_camera():
     p, n, uv, idx = plane(6.0)
     s.add_mesh(p, idx, normals=n, uvs=uv, material_id=s.add_material(roughness=0.9))
     cam = PerspectiveCamera(position=np.array([0.0, 1.2, 3.0]),
-                            target=np.array([0.0, 0.6, 0.0]), fov_deg=50.0,
-                            aspect=W / H).params("cpu")
-    return s.build("cpu"), cam
+                            target=np.array([0.0, 0.6, 0.0]), fov_deg=50.0, aspect=W / H)
+    return s, cam
+
+
+def scene_and_camera():
+    scene, cam = host_scene()
+    return scene.build("cpu"), cam.params("cpu")
 
 
 def step_inputs():

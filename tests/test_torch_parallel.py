@@ -13,9 +13,15 @@ one-device frame (pixel-keyed noise, per-pixel arithmetic); sharded
 gradients within 1e-5 of the largest of the one-device step's (only the
 order of the shards' sum differs) and within 2e-3 of the largest of the
 JAX step's (the port's standing gradient tolerance, tests/test_torch_grad.py).
-The JAX references are computed once per module in fixtures."""
+The JAX references are computed once per module in fixtures.
+
+The shards of one process run in turn on the caller's thread: per-shard
+launch counts read around each shard's call are exact, a shard's
+exception reaches the caller, and a train step's shards cut their rows on
+the frame's block grid while a frame's shards cut their own."""
 
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,9 @@ from mc_path_tracer_tpu.models import integrator as jint
 from mc_path_tracer_tpu.models.camera import PerspectiveCamera as JCam
 from mc_path_tracer_tpu.models.scene import Scene as JScene
 from mc_path_tracer_tpu.parallel import render as jpar
+import torch.distributed as dist
+
+from mc_path_tracer_tpu_torch.bench_scaling import shard_launches
 from mc_path_tracer_tpu_torch.models import integrator as tint
 from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera as TCam
 from mc_path_tracer_tpu_torch.models.primitives import plane, uv_sphere
@@ -188,7 +197,7 @@ def test_sharded_frame_matches_jax_render(port, jax_frame):
     np.testing.assert_allclose(frame.numpy(), jax_frame, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("shards", [1, 2, 8])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
 def test_sharded_frame_is_the_one_device_frame(port, shards):
     """Bit-equal to the port's render() of the same key, however the rows are
     split: the noise is keyed by pixel id; and render_sharded_global with one
@@ -248,3 +257,135 @@ def test_sharded_sgd_step_lowers_the_loss(port):
         albedo=sd.materials.albedo - 0.5 * g_mat.albedo))
     loss1, _ = step(stepped, cam, px, py, target, key)
     assert float(loss1) < float(loss0)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_step_gradients_on_2_and_4_shards(port, target, steps, shards):
+    """The step on 2 and 4 shards: gradients within 1e-5 of the largest of
+    the one-device step's, the loss within 1e-6, and the forward's host
+    seconds recorded."""
+    (loss1, grads1), *_ = steps
+    loss, grads, step = run_step(port, target, cpu_mesh(shards))
+    assert largest_gap([g.numpy() for g in grads], [g.numpy() for g in grads1]) <= \
+        SHARD_GRAD_TOL
+    assert abs(float(loss) - float(loss1)) <= 1e-6 * abs(float(loss1))
+    assert step.forward_seconds > 0
+
+
+def test_shard_launch_counts_are_exact(port, monkeypatch):
+    """4 shards of the frame run in turn on the caller's thread: each
+    shard's plain calls read around its call are its own (one closest and
+    one fused any-hit dispatch per sample), and add up to the frame's."""
+    sd, cam = port
+    cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
+    inner, threads = tpar.render_tile_radiance, []
+
+    def on_thread(*args, **kwargs):
+        threads.append(threading.get_ident())
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(tpar, "render_tile_radiance", on_thread)
+    before = LAUNCHES["plain"]
+    _, shards = shard_launches(lambda: tpar.render_sharded(
+        sd, cam, W, H, cfg, key=trng.prng_key(0), mesh=cpu_mesh(4)))
+    assert LAUNCHES["plain"] - before == 4 * 2 * SPP
+    assert [got["plain"] for got in shards] == [2 * SPP] * 4
+    assert all(sum(got.values()) == got["plain"] for got in shards)
+    assert threads == [threading.get_ident()] * 4
+
+
+class _ShardFault(Exception):
+    pass
+
+
+def test_shard_exception_reaches_the_caller(port, target, monkeypatch):
+    """A shard that raises: the frame and the step raise that exception
+    object in the caller, and nothing falls back to another route."""
+    inner, raised = tpar.render_tile_radiance, []
+
+    def faulty(scene, camera, width, height, px, py, *args, **kwargs):
+        if float(py.min()) >= H // 2:          # the second of two shards
+            raised.append(_ShardFault("shard 1"))
+            raise raised[-1]
+        return inner(scene, camera, width, height, px, py, *args, **kwargs)
+
+    sd, cam = port
+    monkeypatch.setattr(tpar, "render_tile_radiance", faulty)
+    with pytest.raises(_ShardFault) as caught:
+        tpar.render_sharded(sd, cam, W, H, tint.RenderConfig(spp=SPP, max_depth=DEPTH),
+                            key=trng.prng_key(0), mesh=cpu_mesh(2))
+    assert caught.value is raised[-1]
+    with pytest.raises(_ShardFault) as caught:
+        run_step(port, target, cpu_mesh(2))
+    assert caught.value is raised[-1] and len(raised) == 2
+
+
+def test_make_mesh_in_a_group_takes_this_process_card(monkeypatch):
+    """Under an initialised group make_mesh() is one shard on this process's
+    card, cuda:LOCAL_RANK (else the rank modulo the cards), as JAX's
+    addressable devices; more cards than that raise.  (A one-process gloo
+    group; the card count and device checks are stood in for, as there is
+    no card here.)"""
+    import socket
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(tmesh, "resolve_device", torch.device)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        monkeypatch.setenv("LOCAL_RANK", "2")
+        mesh = tmesh.make_mesh()
+        assert mesh.devices == (torch.device("cuda", 2),)
+        assert (mesh.size, mesh.world_size, mesh.rank) == (1, 1, 0)
+        assert mesh.group is not None
+        with pytest.raises(ValueError, match="owns one card"):
+            tmesh.make_mesh(2)
+        monkeypatch.setenv("LOCAL_RANK", "4")
+        with pytest.raises(ValueError, match="1 CUDA devices asked for from cuda:4"):
+            tmesh.make_mesh()
+        monkeypatch.delenv("LOCAL_RANK")
+        assert tmesh.make_mesh().devices == (torch.device("cuda", 0),)
+        assert tmesh.make_mesh(devices=["cpu"] * 2).devices == (torch.device("cpu"),) * 2
+    finally:
+        dist.destroy_process_group()
+
+
+def test_init_distributed_reads_one_process_torchrun_environment(monkeypatch):
+    """No arguments: torchrun's WORLD_SIZE decides; 1 (or unset) is no
+    process group."""
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    tmesh.init_distributed(device="cpu")
+    assert not dist.is_initialized()
+
+
+def test_shard_blocks_follow_the_frame_grid(port, target, steps, monkeypatch):
+    """With 40-pixel blocks and 4 shards of 64 pixels, a frame's shard cuts
+    blocks from its own first row (2 each), while a train step's shard cuts
+    them on the frame's grid (render_tile_radiance's `first`: 2, 3, 2, 3),
+    so that every block of the one-device step (7) runs whole or in two
+    parts; frames bit-equal, gradients within 1e-5 of the largest."""
+    sd, cam = port
+    cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
+    monkeypatch.setattr(tint, "PIXEL_CHUNK", 40)
+    before = LAUNCHES["plain"]
+    single = tint.render(sd, cam, W, H, cfg, key=trng.prng_key(0))
+    assert LAUNCHES["plain"] - before == 7 * 2 * SPP
+    frame, shards = shard_launches(lambda: tpar.render_sharded(
+        sd, cam, W, H, cfg, key=trng.prng_key(0), mesh=cpu_mesh(4)))
+    assert [got["plain"] for got in shards] == [2 * 2 * SPP] * 4
+    assert torch.equal(frame, single.ld)
+    (_, grads1), *_ = steps
+    (_, grads, _), shards = shard_launches(lambda: run_step(port, target, cpu_mesh(4)))
+    assert [got["plain"] for got in shards] == [n * 2 * SPP for n in (2, 3, 2, 3)]
+    assert largest_gap([g.numpy() for g in grads], [g.numpy() for g in grads1]) <= \
+        SHARD_GRAD_TOL
+    # 100 pixels whose first is pixel 40 of the list, 48-pixel blocks: cuts at 8 and 56
+    monkeypatch.setattr(tint, "PIXEL_CHUNK", 48)
+    px, py = (torch.from_numpy(v[:100]) for v in pixels())
+    before = LAUNCHES["plain"]
+    tint.render_tile_radiance(sd, cam, W, H, px, py, trng.prng_key(0), cfg, first=40)
+    assert LAUNCHES["plain"] - before == 3 * 2 * SPP
