@@ -41,10 +41,12 @@ fails unless each dispatch went through the expected kernel:
                     kernel) and "pallas" (the traversal kernel): the
                     images agree, the kernel route agrees with the plain
                     route on a crop, the frame is saved as a PNG
-  [images]          two embedded JPEGs (baseline 4:2:0 with restart
-                    markers, progressive) decoded by utils/jpeg.read_jpeg
-                    must hash as PIL's decode; seconds per megapixel on the
-                    host; the textured GLB with a JPEG base colour rendered
+  [images]          embedded JPEGs (baseline 4:2:0 with restart markers,
+                    progressive, arithmetic sequential and progressive,
+                    lossless, Adobe CMYK, YCCK, CMYK without an Adobe
+                    marker) decoded by utils/jpeg.read_jpeg must hash as
+                    PIL's decode; seconds per megapixel on the host per
+                    kind; the textured GLB with a JPEG base colour rendered
                     under "auto" (dense) and "pallas" (traversal), agreeing
                     as in [gltf]
   [procedural]      a 187,500-triangle L-system tree (LSystem +
@@ -104,6 +106,13 @@ fails unless each dispatch went through the expected kernel:
                     (run_tty needs a terminal and is not run)
   [stream]          the traversal kernel on 1,003,520 triangles (the TPU
                     streaming kernel's contract) against plain
+  [sort]            RenderConfig.sort_rays: the bench frame with sorted and
+                    unsorted traversal dispatches in turns, three each,
+                    bit-equal (and on two shards), seconds and launches; a
+                    replayed train step meets the forward's hits; on bench
+                    block 15 every dispatch of one sample timed unsorted and
+                    sorted, the sort's own device ms and kernels, and one
+                    sample's device kernels with and without it
   [device-time]     the kernels' device time at the shapes above, under
                     torch.profiler, after every frame has run
   [preview-trace]   one 1080p shaded preview under utils.profiling's
@@ -184,9 +193,16 @@ TRAIN_STEPS, TRAIN_SPP, TRAIN_SCALE, TRAIN_LR = 5, 4, 1.2, 4.0
 SHARDS = 2
 GRAD_SHARD_TOL = 1e-5     # sharded gradients: only the order of the sum differs
 WORKER_TIMEOUT = 600
-# [images]: two JPEGs written by PIL 12.1.0 (libjpeg-turbo 3.1.3, the
-# imaging package the JAX package decodes with): the base64 of the file,
-# the SHA-256 of PIL's Image.open(...).convert("RGB") pixels, and the size
+# [sort]: bench frames per sort_rays setting, in turns; the mid-frame block
+# whose dispatches are timed unsorted and sorted
+SORT_RUNS = 3
+SORT_BLOCK = 15
+SORT_CROP = 256           # the replayed step's crop: one 65,536-pixel block
+# [images]: JPEGs written by PIL 12.1.0 (libjpeg-turbo 3.1.3, the imaging
+# package the JAX package decodes with), and the kinds PIL cannot write by
+# tools/jpeg_fixtures.py (arithmetic-coded, lossless, YCCK, with
+# tests/test_torch_images.py's writers): the base64 of the file, the
+# SHA-256 of PIL's Image.open(...).convert("RGB") pixels, and the size
 EMBEDDED_JPEGS = {
     # 128x96 baseline 4:2:0, quality 85, a restart marker every 4 MCUs
     "baseline": ((
@@ -262,6 +278,242 @@ EMBEDDED_JPEGS = {
     "SZgnQjEGxyJxFqiYSqL86gUEH1EsFClxOHAhUQgO+ZkaeYJAhA3U/wCDmYdc49wwPiZrOfiWEEBRAAIyMzWQieOI"
     "aDB3mCgBBKzc0CVkz//Z"),
         "bdfe84602e1d825e267a60b3556dbbc7467ac5dba16b8e299fdb973a5874a660", (80, 112)),
+    # 48x32 SOF9 4:2:0, DAC conditioning, a restart marker every 4 MCUs
+    "arithmetic": ((
+    "/9j/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8LCwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBwe"
+    "Hx7/2wBDAQUFBQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+    "Hh7/4AAQSkZJRgABAQAAAQABAAD/yQARCAAgADADASIAAhEBAxEB/8wABgAxEAL/3QAEAAT/2gAMAwEAAgADAAA/ANKk"
+    "LK6JguEkQGxtwJ3D5HtpeBy3yoJiGfn+x3mkM7tiLRnQm+87POOOjj5GtxKp37/ZGqjnA2ApuqEin+3lvXABfeDxco/W"
+    "qKi2SoB+5e1OD6b3uQDqLAtesRRJms2HKi8P0e1BZYJzYRCyJzGFnKGn0NRyifb4lDkx/wDgMv3iBet07w0YbO7AQyvN"
+    "dxPgX2sqlPGF9Pcqqac/q7R6LfweZ5pfiv21E/8APigEDX8HpdOZqepm/K/UJz3kfQ5x8h8KStG0iYJkXE8fapizwn0j"
+    "bJ2oWWoWHDVJ1Qkdc3ezeyT/AJ/Loyaos3bDkBlDA40GKlt5dfgNkFUqy50A6m1LF8q5cL1vk15mLakLCyBsFZZJyBnJ"
+    "6r3W+5P1nB6h0MGsus641fX84AStktGdzSmGRsbbl1H1JuHi/wBroTaTJDYfej1IAWUp0N3pHk8r181HrwPDynruBeXY"
+    "ZygrQb+qdsVvWSW7tiQfEHFJthrSLgZS0Oc4JANQEIzJ+HtTR5knVQ+lhosmj5+8rPBHIVj/AKpTDuONMgRsgvDoZSqh"
+    "1OYashNdOvLG2qiFx2toH2ShM8Eno/LA/9D/AM/ziLzHlC8QSJRW4f8AbhQ6v996G5zEEHcXeuRvzeViy93IBcuPc7kF"
+    "7KWtOMwAqFQNOShI8zboWP2sgZDsZxZ/BFiw0q2XocqbMnMb3Ggdjn8oUlaOWoPO+0rwCntIwX0WbbY16OmlDbiagPRA"
+    "K3+LuIp9Sesyg2VP6JTGFOBOFcXpDWN8yamFaFW00t1q7aMachHmvbPjQAhyZ5nDaUFET2BVN3bEz3ImeTVpcVVSJ5NT"
+    "4m0uy70KUFwOosFTXpazvPKnk1T25wuT4DU2/f1gQFv3BSBrdCsZWRANZyHDFzWBxFPTK08+qEbJTDnhat+hWjTsQP/Z"
+    ), "1895283d55d2081e410619482f2724f8f09251a43ec8397ef4b1a8d20162878e", (32, 48)),
+    # 48x32 SOF10 4:2:0, spectral selection and successive approximation
+    "arithmetic_progressive": ((
+    "/9j/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8LCwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBwe"
+    "Hx7/2wBDAQUFBQcGBw4ICA4eFBEUHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4eHh4e"
+    "Hh7/4AAQSkZJRgABAQAAAQABAAD/ygARCAAgADADASIAAhEBAxEB/9oADAMBAAIAAwAAAAHSVm9mPhSKEkBxAU6c1gMj"
+    "2I55bV61MV7Mmconk7ulYc3SPPXOs1j/2gAIAQEAAQUCF76/0zznBZEAciLOIXuNF/zjCIV0p/m1P+4NUpVC4dsE6rnZ"
+    "7DQusZlqaOg5mNIGF79DH3O/kP/aAAgBAgABPwEVU3aOVdBNHRZNuhIRb7CeNO/5aP/aAAgBAwABPwE22L/ehz5byndA"
+    "cBiUXWWEGyVmjh1LmeypnCe1oP/aAAgBAQAGPwJPGZd4sqYrrWrWm+h7hvVC/IPzIin7OMqzwiW/+ioHXwZXXqQuU4MW"
+    "Y+rYev/aAAgBAQABPyG0hy0MZm4l7OxZwYDmpDt49UP6XcRlYgyVRceFRylrNt4H4bBCfKOTQCcSJq0EfJQPHWehj0oU"
+    "eFRTIs9ifBgdjFpEbrfa8zpmP+IJSiL1j0yZsC/I9OVYHgshPQOTmx9Z1DktprKPdobN9AwaxJp+CxO83MpRXydO6cD/"
+    "2gAMAwEAAgADAAAAEDM0xwMw/9oACAECAAE/EA5UyH0wAAA42ifto+odO+i2/g/GxPX/2gAIAQMAAT8QGiUVV6i2Y0f8"
+    "P+OAJPBcJLN5WKYMfesY/9oACAEBAAE/EJEiXWhHXXfePbrKRO6hnOHAGgHvzlafGyvoNGLAU+RTw2I4tZdC9jMYBlfh"
+    "/UaVOIDV16A2C2Gqpg3p3jbrtkX5ysRp7egDxjwJPlncHldLbORN1HJ/mSJMaCH1vBrNkEToHN9RKsxj1gR7re4qMiSp"
+    "cqgz7zwJXpKbA3+PqlK5mzvd6QAVF6DafQmEB1DqSBKKp2KNadZQnfkavvZL6EssDDAaoH+JLwTsHrxPYCoUzuWYqLlg"
+    "wA8xjqm73eZFjdzGY8rfMWUM2CtULGDJb7rs9t9dS4F/Q3DElSzDywIBPUN1zH7af2pShHO8uV3UnY/QQCvrst4DmcEB"
+    "YHea1nt9Bvp2yLK8YhWA/9k="
+    ), "1895283d55d2081e410619482f2724f8f09251a43ec8397ef4b1a8d20162878e", (32, 48)),
+    # 48x32 SOF3 RGB, predictor 4, restart every 8 rows
+    "lossless": ((
+    "/9j/wwARCAAgADADAREAAhEAAxEA/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUF"
+    "BAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdI"
+    "SUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJ"
+    "ytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+    "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2"
+    "Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3"
+    "uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/90ABAGA/9oADAMBAAIAAwAEAACn6b4B2cyYnVEv"
+    "K3uq6yHGgudfyeX0WdY5Du9a7R6NvP4ezFnQ9RRtweleeZ3I+kZyc70mzy2zlbGbZqcbY5xK2N2ZjY930jqr3lZLz2Fz"
+    "HYl/jOH9Al72HMxebsQzRareez97tOmzqOd1OHpZenc6LI5zL9Cwo61q3Foc30VvSoVb/SQ6j5770xtDAxs7e1+k7KTj"
+    "+cjf51b6ju8bD4vQmjh1/QOky9XHwvN71u9wG/odrmzc/LQ7Tzqj5j7V0PpniNfM9L5ni+pp91ylyHK9FoxRdVkc9ld7"
+    "oVfNfKZvSOty9n0P0/jPMK171LyOz5Xp43oOhdmp89znQ9F1tLB8ddreocv2cOnjRZuv0fO85nvs7fS2cjfxc3L1MXMy"
+    "eis7Y2jk0Oq7nsYsDn8/gW9h0nR6PQZ3n9dPRI4+TSY2+O8+4Xp/fe7weT87TmduXG7LqE5Q9A7TlfP+Lb6Jva/kG9rb"
+    "HN6POvqTYWR6bWqTdHLxlqfa6LCyOI7jQ4XB531PkOpr9lzTW+k8rucluV+tZz+Zm5GX2vRWuCoUtnQv8Liw9p6kWa9v"
+    "nfN4JE52ToOw6zV2OHxKvVcvJJ2/mXMXe0kzOptM8Sq4Pc7fVdflanmlDjfVe0p+T+Q+i957DwtTk9DG0Ot25eVucdZ1"
+    "+yxMXzr0Ln+0wUy4+qv5Pm0eT6PV3+1sdP5r1XHX+WklzmcLndd1V/zKrt2Iam7rVOdt6XovH6XC6HN7VrudDe8o6Di+"
+    "257V57sr9LG6HfzPL+HwO29I9JzuB43ovQdPoVg8WyvP63X9Hu8Zegik6i66g3FwW2PYM7oaePzlG3xtDtOs8x8y7r0v"
+    "0jyHH8p62r0Ca3V1cB0nZ8Jb830s6fp7npslPn8alX4fW6DpNbNn5rzbYx9jC0cpnR7Wnmd3YZldSmHDh3+P6xJOkSj5"
+    "Q7c79MepvY2X5x9DZXd+O9PL0XnfnXG693qei9iycnxmxz3VbPe4/n2XYsR+udV1HK81g4qXd63lppYdfO9E2Mivn+gy"
+    "ZfE8ztUvU4ZsPLr+fVeg9q7Ds8vlvMucvdDty4+FS0bV/heZxte9tTGb6L0VTk27uVh5Wr3dnl8bI6Wv6A6tlc9b890s"
+    "HsM3s38xobvvHL+Vcg7Wuxb2RndFiTef9FQ9O8q6XnPWOHzMXre7i2uT0eV5lmz1ldljZzYta7s59biuX6Cp1PLegZNN"
+    "tWzwWxu9DLZ3Zuq4viuHvafR5GLzV7T2e/6CPz7hsvYhzOY9I7LsfOsGLpejy05votT0jHx/OMPq+ob5FgXPQ9zG2+P7"
+    "GTE5jm9jqun7HO5aXOI+uxMfzbsKlneS95Szprdfc0jRfP5N3m/e4jJl0Xd3y+di19693vNcbwfa9T61i0vOq2P28215"
+    "h1OJb5rQ1uT9K0/ceEwuE43p+xucd5bmWszOgw+yz5c3V0btm1zFDG6SXTdsVOazu86blfPcHvr0PIUqXRddXm5nU42J"
+    "lK27X3e0JOGpcXzlfS9D9g1sHxLJ7Ctg1vTNrzvZf2PkO7vWkwZub2ey6zg2YtPLZ2NPA9F5f0Tzy9yXK6/a7voPN8rx"
+    "mf6t1rbfA9NymtzGBzPa9P6hymZiNdiXsNcym/U7roeUlxu4t59D/9DvOZ8Zd22iqazeK47Ubf2elIVz83S2E0tdvOVY"
+    "NCjgY1W8XtF7ONb2du5h4+fPk2pFoPzqXSQQ8HQs2uO6Of1SK/59SnsYOPjejaKzri8d0HX9CmNfp2MPo9iXMy6E7et5"
+    "+x5xqdTo9ZL0WdtcdwFno/Q9fGxuf6Pe9H5KN2rsakWTyl1d2lF12rs3dPFm4DOtXdnK6bSsZORzWdp602zbikmpZlrS"
+    "xufytHv+qv8Am+dxVLS2tDSr1eL7novSOe5PHw+koOxbuVXd6rZ0s7S4qLMdibmhLx/oUvReRZ+1z0vUd5F5PzFno62r"
+    "jdf5VF573Ox6bzXoXm/fcz67tOx/N7HnnQ1e56qLnuE5ft7/AKHzOX4nuWe/5/Rytip6Rgx8TaZQpU9GGxhwGfe5XqKv"
+    "RWakmpoTcMt3m4PPu8uHIQdVvpp8lm53p2v2/L4nPYfK+d9L6dJVodZ1ep1PHcxidBkW27tfUxObyfQtDy7z/qO/6/DM"
+    "LTjkyr+oU62WtXdj3M30Dzx/F9rk9XzXqPkPU8F1HNcjmVO56PQbnalLpsJK1nVhpV/Sd/L8zrVri9ZkXLnRrq4trgtv"
+    "O08WlDvMhj6CPHt79fHxLeJzHZ2+68azaHYelbEfM8TdwK+dn9gnpWR1mR3fmOLUscdym1Q6/n/cOV7mlh1amNx1nt9f"
+    "mq2v2PF6HB+tbu5wXTcv6H4Xcxpeiqbc1fTqGdL6HYfmRdd510/nt6fra8tHreI3fMJeK9L5Dq+b6Rl7d45+Bt7eJpee"
+    "+j81s8XDwWj2/UVaHYcTgZXsfQ7VHOs8Npj2UpuY5Lo+v6fO5DKytzW6Tms2rr73E+g+kbMnjmj8+XqHrFmblPMNb1bv"
+    "cM857jzj2rw7fw/XU2m8n57Nuadyh2XlPZeQ9x5v7f5R615R7dS9Fr+eZN3UwOVtbEXV811UmhT8ZMbvdbbfa42jwPS9"
+    "L2d1Fz6WrPyWJzfqfVTee8d6CndcP23Ib+b0vNcTidFLS6xkPnXOx4XZZnoXHbPH7ujo7W0O5fV5+9Y3LORzcGF3Gp6j"
+    "515559Q7bo/Y7fKYXnfc8x6vwHNwb2xg6Wf5Xpb3onD9BB0Kd/U5LMqelYN3x3dZ03O9NW6bgq3KT9tH6PxHX0YuO4y7"
+    "fjmgop21/Qht8rzerp2Oeh3LGx5103LdtZ2MnMzMa1o7+TdyGwrM/X6TVz+D5Rc3K6/tvXOA5v536Ox32foZfDRLucfz"
+    "HQ836h1HqnmPA8F6B0vpnnvFc51fXcvbztSCPtcT0Lyb1/x/sOXuycd02T2O9cTh+b4W9V7qb0bmMOrl2O12W+Wx6HXJ"
+    "yG70XZcpj5fIdDn9JzHZen9PmcHW293J5uexgWtfXp8/ZqO0HJnw9/zr/M9Pfsa/mGvqavJZVep0Wxv53m2SvQ+n3NWC"
+    "zzPCeh9R7n5nj+cnRegP84yNDq9CGbleVzej7iLluUoRbVpef7XqLvn3F6WzU4Pv7vpfFpk0L7bWtuR26+5g4nQZEnj/"
+    "AFV3RynR9nD6inN+G4Hofp+BwOLr+r9Vs85n8zzPF52v3FmvztmjvbnX+Wee6e17DyfpXIVM7ntqjyyYfrFRbWf6Hn5v"
+    "G9XUvYepWoWtnWmyvL63/9H2HzziryU7eXW5S5ezc/jL1iSvV6OUxr2x1vJ48WVoZvJXut6HP5nVlr+epHxbtWbmadvX"
+    "65uXX29TL850c/o06elymbShZDtWben0GLzvK9fJ0Gx1DsirvdhBV24amTlQ7/d6GTnnScHb2++i09K2vLy4+c/c3rO2"
+    "kfD8zn9reis5me7odnlI7+7TSvyfCt7z0dLHM38XTfv7eR5+zS2N230uh5Ty3jHc616aba15eY5NvXYXPSdhHZ3+gwc6"
+    "7Jq8YkHV8x5lL6d7FWTy3N5nvN4q6G5fs5MfmK9P6Z2XO8pzGBkXOw3OU8uwDd259LoO5u+Pcnu6uVlelaHLYF3n/K9b"
+    "ou/r+j9Ld825bg8DS6L3bosHyHL6jrul6HH5GDprGfyKS2tFK3OcVkWPbV1vHd3G75voy2ud838+4i36J1npmPS1n1cr"
+    "boY0D8Hm33E7aXd4bT1J7/nW3k6ur0fY1sHhfNef2e43uQ1NDt4LFfA5R2tmS5m3laebf6F9Lz+Hp7/S891jeu8x5vlP"
+    "V9LP5jYrybHo3K8rQ9R5KjiZvGcrD603sr/b6vE43ZdCzE5SvraPb+ex+TYWJ2WzrQdRzKQX73n9+r3vBS8zvzv1+gj0"
+    "cyxSpLldXgZ/E3szINXqvQq3oNfovOeSrMqY/fddf5jnuj5uXn8/lI/UfYNPy7kL2jzFPmnWfQu7z4snmucs9VoYHTY0"
+    "eF0HbdT1eNS8nx+J9XuT+Z9dsdUy7ueK8Pmep9s2vzmFu6vQc/j9LcXyTmcL0Knq42ZnaWh1Pnnay+x1djNXFXMb0O7p"
+    "35r3IV9Xc7jluM83xKEHb9X2nO6nFN84j6Xtbmd12vH55maNzl6+l2GvHvc7w/A9Nr6fCUpOh6PZ6bR4WLquo5jkdGr1"
+    "nIT+PaXV9v3OlueUcLqehW8LGmxeb5K/BuTdrpZmJpdbzedgdJu1ug47EzNbtu22q3A1qWxy3IYF3o/QH8fzrdnffq+f"
+    "8Ytjcq7OXnvj9Om7XyblfLOYqdj6X18WRxVTpu0r6FzgsTE9Po9hmHGyO128e2z7Izo+X38TIocx09P0DiKXn3RN6Xq8"
+    "+Dy2S/T63Ov0+s6TLOFs+bdtN0Gbylnc7bW88TzrYq9/6Lsu4nqOexcvcu4mPasWOgysbzzUk9Q8y3PF4+c9V9X6GjiU"
+    "LUb+V4Sb0fpbKXuf5CfR2GcrzeRo3OfizaXM6Pe950PO8LZw9Pm5er2bnHYef6Dk7XkPWcv6zL0nnNG3q3auly/K5Vvr"
+    "XXcdacmRv0O2qdZdwum5TuePxM/G3psXO4H0qTpzvdLH4znOX6Sn2HI7fK9zJ1OFy/OYerj9P2Zyrb+twT7kt3J7al2m"
+    "R6FxWlk99k87xF3du81pUOpybFbraFHhewgbksz5Nv0Cd0fQ9QmRFw08vZ0OPfpdTZ5/k39H1Xa+bdZ5Z3Hl8fK9V6B2"
+    "Seex9F1nn3msXoWdQyNK/dZSb3fVWsjhvOsLl+u7/wBZ6jl4HZ8zr+VLuQ0+K43H6X6FwbPhvrfMdfy89eLosnpsjV82"
+    "sJ6HDqc71mLD5zw2ji95B3Obi5u9STgMWjd9b9D67h6E295jiPnq8vfi17dujSbXZd//0vRW8CySLaqRcVe4dMHqsnU0"
+    "sfruDz+H9Qo7N3p8Xjcun2fNSc5gy6DdhmLc6rZyM+LWq87ydb0feTBfpsfkY+budNPNFn7Gvfu5Ol5x3FTp5dDL1uL9"
+    "OTqOa2ugkg57oLBzt92d3VnqbdO/xrcro8Ha19uLA6PnNPmJuV0ndpD0uZnRVK2JS6no+bwMvZ19mikVinyOZc6Xq930"
+    "Xh+vyd7kbV7l31Owp9jWz/E7NHTmdrW9DqZ35XLM6qHleYs7lXkNLovbd3zHnaPY4tCXmn9j0vEeYxdrc63gFwuv77m+"
+    "q4jp+H3sDtMru/HLnA+iWMpuhvXMwzec6LvIuP8AN8XHr+r+rT8Vn8pNd9Cs+Xap0zNzEyOX08jQs7zb896lw07tLiou"
+    "hf2PUbWbteXW+P1Ocr7tWbcu+f8AIb/q/Rxed8PDq9fgdBfvcBzDek5m4vodXSxYzYucbndltLxXN7nNa/J9dem7fOk4"
+    "fuPSM3hePk76nY4DVo9ZnZ2jg97wW3wPUr2XNw1L+Ocf6Nf9i6zgPJPJ+89L6Onax+bz7PRRmLhNt6Wfcz4X2MmaOG3u"
+    "U8TF52DU9D2Vjk4FmrgYFp3S2Ov6vG7WHa8i47E6jo8zna0GZUy+g57q9apZZ6DBFqJw/Ca/TXaNTE17neefXJtrZ5zo"
+    "3rx6Wef2bfcQcpVxunjj6K3yXKXMyRN3W5rZzeuvpzlrj9vlO3xJuYt87V6r0zoPMPDU9IuR8130mtvZlbhr/RR5PLdH"
+    "1NLTdFi8vV5/Vl0dvsNjk+Y1tTSi3LHPcPk7HoVh/k+/4xSv/Q+Zk5Pc3DlOeq9fdNXqE0qWrwTqOvw3e6G1xsk+XnYv"
+    "Q7XbY55ph89v9Vv6XlfQ3e08x2ed61nb73m2DzHdep4Nbl+nyeW6BeizdTkcrP6rXsSYlFbVbNn5eDz/ANI7b0tnJ+bc"
+    "1Luk01itmZjOi7q5n2sXE530Dt7/AB0KJk8x1uR2HKa3O0+G1+a7+32fn1zds8XjdNz3mup3vf4vnuP0PsvXc5iU7nFX"
+    "6G5zndX6fOx2cCHAsTdv1slnzjnuRvaXb99U4LT7brOC4afoOIr3u453m+0up5zb3t3oc7sH8hieadNyvc1N3jfQcTpK"
+    "XTpy/OJW6vm/V8Pq/nan0nsW75TzOfYrbutKnSLjc1ot05snzbnNvua+v610mL5c3MgSleu3fQOTox+l8/4xl9H3Wasu"
+    "xXzebt6ay51ncxcm5FJ5z0PQbkHKQs6y/j7kHR8q3Q3sc5z0rkdbAvY/H7ljs8aTL083N5fpr3QwM4rV5Tueb1akjOlr"
+    "bXnnVv6Xxvque0sa51FXe3MLS4vseV1q2Tdytlm9tU/MdDrOl5TltPa4N+jq9pD0nF5uLzHl2b1HUd3m9H5vu52Hn2On"
+    "v8zzbOp7PS51dDS8zxTe9Cn7LwTmsfob3oGba4/0aHjOG3+pvYb7HpeTy/lq9r0Wbq53f8rneb6HbZfHYPq3U4dDp9jN"
+    "z+lu1dOhmKzvfLTyCKp2Fve6zsI8HE2vMd/T63M5Pr+Zx+Wo6FTt9i9h8NseoOqeddfoHGTU9LhqG/BnVO50MPm7Gp2f"
+    "aXuR8yydW33W30v/2Q=="
+    ), "70c154581238b617840a668824f80b86ab5b8c8570bb96bfa7b4c87019f1f94b", (32, 48)),
+    # 48x32 Adobe CMYK (transform 0) written by PIL, quality 85
+    "cmyk": ((
+    "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAFAwQEBAMFBAQEBQUFBgcMCAcHBwcPCwsJDBEPEhIRDxERExYcFxMUGhURERgh"
+    "GBodHR8fHxMXIiQiHiQcHh8e/8AAFAgAIAAwBEMRAE0RAFkRAEsRAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYH"
+    "CAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBka"
+    "JSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeo"
+    "qaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAA4EQwBNAFkASwAAPwDxfxrr"
+    "kM8zvGftLGXy1lRyGiUuCpPzYfpjJP4jArxw+EdTe1dLSBzuk3KoG4MxPT5UJHCsRkcYJznOPqvUZYo3eO6hgJhgWRfM"
+    "l+8AWbPcnlRx69Cea4n+17VZQ0rgYXBOcED15PuM46/z53w7p/8Aad5HJuO2WbfIFlAZFBAI2jkHAOdxxwDwMU7/AIQy"
+    "6ku41uIrhllBJtz8wIbCbjjOM7c5zycZzkmsDV7gQr5dy0cb/eEkYDOuFAJPpgnPzHB46AkBP7ZiWFjG8YK8CQcHIy2B"
+    "n0zX0L8KvCSR2sUd7BCk5QLbxliI1wSSqkZDZxgHAHKntVeDwdfoVjjgkeNyWMhkQqhySwX+IHjAyRxyffldVmWGDbJL"
+    "b71XeQFJG7JJIxgnAwcE/wARPTmpH1mAgs0ihlAG0KQSMcE9iPwNfSnhvRzZaYLeJxvjYiRTg4I3EswY5wcAd+g4OMrM"
+    "ngjUpJguy7fb8qIkRO8YzleeOQrZxkHB4zk8zqjTShnlaGGQxmV1L+YqSAFlBHAI5OAOPlHBzksOuWypndEueWYvjbz3"
+    "/UY+tc74w1p7NBDJcKShDlGG5lA42naCcHkkE7TvznFPi8J3rlLeN5HUKpmPlF8EKNxXv03Hvgkc8c8nqd7bNumcl13M"
+    "xRuHU5UAH5eBg8ZweGzuzy19WhAaRgqnJCfNt4ycA/jgfga+a/ij4hS6vpdPMioyBlIUBnYjOB93kdsNjtwM5qK18Dz2"
+    "bR3MkPlQs0bDIwiEdWwAckAgADJy3Q8Zx/EFzHb2JYzbbf7PsRplDbg33hgAhRk4xyOFxnu+XXEmDRK+5wGHXJYeme3I"
+    "P5V4rKV1R0W3khiJkZpGkjbJyNvyD5j0yc55yOlfXFx4JsIre2lto4UiVjEZELMI4+x3BiOB8599w9CPpq6j8x3STy1i"
+    "ErbfmHJbqCeuST1wevQ8V5HHrc7ySJKzliA4UgAs3fgjPsPbH4+n/C/w7Pf7TdLbhFjU7X+91UKDkY64ODwB0B6B9n4F"
+    "j8syQxBopCxmQQht4PykcAZbGMDnAGOvTnr272PJE32qKZ1IdLi5dNrHaTzzleegwPmXrimza624K7EMuAjF8Yxznntn"
+    "OT3zX074C0KO1tIzcZJVS2XCAcNtBI6gjHQAktzgkZp954HBZBA6GbYyhlaMkFD0XtyA547nHUmuW1bUXhSa0uI1SRCD"
+    "ERKuMNuOzBwegPQZbkZGeUh1zg71OzIOCGGQ3r+OPyrr9anjstNdYyJLVwwVVkwWYjaSG5DcknOeowepw218DxfLJcBW"
+    "kkbkSPwykM43Ek7ckew3ADPUnlJ5rV2DwTkrIRtCxsUZvvMfu5wMjuDwPSll1xuVjJCqP4R0PC8DHOM+/BP0rwr4t+I3"
+    "aa5iT5LeYKZJTIyiJyUzll6jB49AFGBiiXwfAhi8u3wVkKqU4Mi4JA+6f7xGF7nPpjn9XvVsoRNueaXJVykBKsWzhSGC"
+    "4BGVyB0xxyKF1iQ790mcqCc9FPc9fbqfTHrXzn4zu7a8vyrLG23a0qKSzA4x0IyMgngfKPT5cUyf4f6fdQqksBCRKnml"
+    "0KgMSBwcbiqgYwRjAHYZrmLm7htpbh133IMMjl4hhSoDENgnPHXOD7dxSx+ILiJyUkyWLbQpB4APUdASefr9aPA+ktfG"
+    "Ub5JIpJHCHgrOu8nhgQd/wAuOmOcZ5xV1fHSLcNFmRCWEMZAVsrxuyoz0wB8wz83r1+qtQdGwIog0LI+SuC0ZDAYxwdp"
+    "UAEA9cDAyMwnQiYw/wApwN7dRg9uePfp6fl9MfDPQJ7OCLVC9xFI8Y2RMm6RUBwF9sjGeueenQxQeOLaEXR89oCThJSx"
+    "WQ91GSQoB2knOfXPOK5rWbqSzkFpEWVXAQFBgb1wepOenBGOMkY7059DlcxfuxIAPmXAKj1Pqeox/k17jbxXNppioHVp"
+    "doKIzBM4AClgM5bpkg88An+Ko7nxnaMYlVxG+AVkCYZ0AYkZzg7cgbuBgjpytcjdylYwIol8u53CTzXBcsFwAuMZQdQO"
+    "cAkjqcOj0WYBiV3DPKk5APA/DOCcfX61598R9dkW034AEcZVBCdjYOfU5znjPpjOWXNJpnjDTYGMsix7XVE3DDuWOFwx"
+    "JyDxkAY4I69TzV/LHbzXk2JYmnXyRjceSAThgCCARtJ9O/alutHuXARS2QS2DlVwOePX3PPSvlz4m+IBJ9qsbhpFMLM4"
+    "ALLgk5UK27JIJBGAfvZJ3E1NqHj6yldhC/lhI2jjVyCRxn5jkYztX5cnHU81zusSWXlOZJXWcrtkfHz9dq/eHI5RsED5"
+    "gCD2plvoEygb13EsGYqOD24/M8/0rz1ElvLrFxE8s7jzkkRVRNo6EtwWPy9+fl4POKU+NdMgj4IjLq+V+cADbt2bRlj2"
+    "6Dpu56kcrq80VtLPcW/mTZkfzAkxAfj1wC2CpAxjAByDxSf2Lcu397aV5+U985zwPz9vpXv/AMKvDUjkqyCMb8yOGzIG"
+    "C4OxiAVztGRz3yCM5+RpviBLFc4n2tah1UFXZsFcBjjcSo5ByMbtpxnPH1XqlwjhRvSRxCf3UiMoYLgNjeNozk/KBzjn"
+    "mvXU8Po0WY8iXBOCAMg9O2D0P0yM19GeEdHs4smztGJ/doV3lJI8jLMDjP8ADgfj75qzeN72NFhW789WLSowHzKwUlW+"
+    "UdCQ3T1xt544+9uJHh8lUTbJEJApkIZWPy5wxG75VOccgqBzzUqaHAzFzD5ZACsOxGRkcnqMjr+fq/xDqUVrpqSRBlkn"
+    "lcmTzSpVc+6nHABPYc84BFWovHV4llARflJbQLt+fhO+0YUkYLM3TuDz1rA1a7gWRYpBth+bjBcAqmMjPbCtzk5CEHIO"
+    "KifQoTO4MAKyk546+5yQOgA/P6V83/FfxTs1G9Fxcs0gPIHz/JnBfjrkdjzxjGejn8b39vGJbmdIo2iAbdksQCFQEBDk"
+    "4AyR1CkY4Irl7ydY7G4z5b3EbLJG/wB4qmxQdx4AHX5u/HpikGh28jFY4yzBiRjoM8nGW6c/gT9K8Bu75J9UKRASOu1V"
+    "YTlS6hlKgDHyjg5PsDwQBVe38aXf2oW8Nw9pNFHgyRNvUkpuLEFsHA556dsD7vM6m8cCzs0nmxs6iVwjb03qV2988liT"
+    "kccehqSTRYfKMjxiZHbO1htIAOMZx/8Ar7+/a+CtHa8uJ5pbOIySOiWwXLZdSvzMcKduTkcbckZ6ZMo8X30Ns88d8ot/"
+    "usZQxGSuMAsM4AO04HPB7EnndZuBM+8yRRKEP2dJF67Mrwuc5Abn6jjtTf7HgeQRtATJ1AXA6HPQH2yOa//Z"
+    ), "5f6dcaf346103d7b9a7effbf37d2d33aa9d64f9fded801190b5ecd17dfdd4117", (32, 48)),
+    # 48x32 Adobe YCCK (transform 2), 4:2:0 with full-size K
+    "ycck": ((
+    "/9j/7gAOQWRvYmUAZAAAAAAC/9sAQwADAgIDAgIDAwMDBAMDBAUIBQUEBAUKBwcGCAwKDAwLCgsLDQ4SEA0OEQ4LCxAW"
+    "EBETFBUVFQwPFxgWFBgSFBUU/9sAQwEDBAQFBAUJBQUJFA0LDRQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQU"
+    "FBQUFBQUFBQUFBQUFBQUFBQU/8AAFAgAIAAwBAEiAAIRAQMRAQQiAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYH"
+    "CAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBka"
+    "JSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeo"
+    "qaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/EAB8BAAMBAQEBAQEBAQEAAAAA"
+    "AAABAgMEBQYHCAkKC//EALURAAIBAgQEAwQHBQQEAAECdwABAgMRBAUhMQYSQVEHYXETIjKBCBRCkaGxwQkjM1LwFWJy"
+    "0QoWJDThJfEXGBkaJicoKSo1Njc4OTpDREVGR0hJSlNUVVZXWFlaY2RlZmdoaWpzdHV2d3h5eoKDhIWGh4iJipKTlJWW"
+    "l5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uLj5OXm5+jp6vLz9PX29/j5+v/aAA4EAQACEQMR"
+    "BBEAPwD3TSPFEENratB5bFMRcYXcfvHaQNvRSDjd1b6DWj+IdpaxrMZw0kKgxhH2krsbAYYU5yOMdeevNfIsXxDuhJJL"
+    "PMIyzEsdxQSJleV8sDgtzxkHbyAeaw9W+LwW2uGiZ0ckyKZZA5kJPLE5wMccgA5A5JIFfzHgOC/rEkrf09/l8vmftuM4"
+    "PjlGBcE9l8l18um5+q0+D8TTlW9pTmpSvP34t2XwptSvLr1tpb1DHcGYiK5VScYVPjlOOi96K0evTdPbQ/qCfAeFp0KU"
+    "KVF1IOmk+RJ8rSlo1Pqo6a2fvPfYirwGlKCnKNSgkoe7FxVPS3Lbfq9L23Wiuz6W8TfFi1WSZiYJlEbHZhC6s27Zgdl4"
+    "PbuD6muKv/iXaDUo4I0xDEE/ckAoSRnp0Aye46kHPy8fLGofEy9u0ZMuw2FV+bdM5B56kkYwORjIGAAelXSPHF1cXaP9"
+    "oCW5RRO8gDAEgZ2sMnH7sc9s8f7P7zk/AkMNDnlvbX00/wCD59PI/kniXh+tmOK9lDbW39f1f8/5npcC4qbjTvKM5SjG"
+    "Unz2lFW5ruz11V9+vkjCHBmKrYOrWc5OVRy/exb2Ut/XfbpddT+nq3BOFpyVRqKtLnenLTSa30smtXo76u9zGpwRQ9la"
+    "VNe2Um6UKbs5JXto0kn723W2u+v2BofiO21uOE3UhaMiRjOZsMyg5wQTgYRcnryf4iefTNA8VxT3EdnMWExQw+YSZNx2"
+    "Y3jBA4OST3x3yRXxd4V8U3k0ck5EcM6sHy8RUyDBIBHAzuxyBkg9TnafVbXx1d6fZpFJdeRBxyjERsQg3YUHJ4AI3DAO"
+    "eSTmvpqnCzi/ZJry0frb+umx+jcGeFqclUqK1++vX56an801OEK2Br1vZK02oqNOELx5rdGlr7zSXWy6W00hwTUpUvrU"
+    "YJ0laSg/dslJNRtv0slf7rXP6XqcD4aMqdG86mHkuVpS0jZq7W+lk9Oj7WulhOCcFXqxqrD+0qtXUdOaKbfLe6013tbZ"
+    "djidb8MPa3EDpg87yC7ENwxI45wRjocZODyOeI8S+CpoUMYjdZUhwreW6sHf7qkZ5J5wSQDkewP2f4j8MW1xtjDZUL5M"
+    "luGZByCd2MDAAGcHHUdDmvOvFHgu3u5nt2kS28wbVJHl+4JOMk9QBnqxGODn8vyDN1NwfLb+vQ7uOPFiUpOlCXu9uuvp"
+    "v1Wunc9CPGNOOHqwq3lFLluktLtJPVWur7vprscdHj2jiYyqe0p8lSd50Yyi4uMVve2y93ZdPW38yx4zxNGEqkpK8U5w"
+    "qNKT0aVr933127F4DjStRbqRjVqWbcmpOfZOyvZebtrZO+tj47u/BF/qFwFBefcS7IzBNyg87VIPbdkDByRx2rqtB+Ek"
+    "7W0kZ8pFiYkYjZGHylWA7AgKBwPUV9N6J8LYmTJgUo+AJQp2DJZCqsegLHPTP+z6eq+E/hdaWtxFJKvlB1Mj9N6vt3bQ"
+    "rEE4GQARjkcDmv1f/WuOHhy2Wi/rS3ytv5bH5rw7xDPMMVeS0/prX1fR+R/T9HjLCUoTcmo3tCEoxclfdJu68vibVk/U"
+    "S43oTrUaq57zjGL9+M07zTSel2m5Pr2P5lxHHFarVg+ec3FNypqdptq0lJruk0t/mzL/AFyr1KDpqneSlFK0fcnFStfm"
+    "je13a7vdq9r6HzZ4Z+H9za2UUjSqX2rIU6gqw+UuNpyAOfqOM8VuR+BJ2sjdQSSEhWBieNkWQDdxnIwRwAFxzxwTmvr7"
+    "TvhjFLpkflW8kMyuoJ25DKF2BjnJB6+vY56gU9b8G6dpULwRNC3zfOiqq9QoHt0D+vX+EdLwfE0as7RTu9/v6/1v6H9M"
+    "0uNaeUYN2/rTbbf8+p/TE+J6HtpUlSlFtuCnJWfmlqrPsuz1e52z40w8K86VWMFFpPmjOMnB3i2/NPV6376rQ/leXHVX"
+    "DYmUakozg4Pqlyu/Pbonsvx07qPGuLxfLObaqRVoOTbvZtvRefJa9ttbn//Z"
+    ), "5106318508a404c85c49401b2bc1a5a250fe0173e98ac517c5920027b4c83107", (32, 48)),
+    # 48x32 4 components without an Adobe marker (CMYK)
+    "cmyk_no_adobe": ((
+    "/9j/2wBDAAUDBAQEAwUEBAQFBQUGBwwIBwcHBw8LCwkMEQ8SEhEPERETFhwXExQaFRERGCEYGh0dHx8fExciJCIeJBwe"
+    "Hx7/wAAUCAAgADAEQxEATREAWREASxEA/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIE"
+    "AwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RF"
+    "RkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXG"
+    "x8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/9oADgRDAE0AWQBLAAA/APF/GusXl1eyyM1ntZFEr7QVVT0Y"
+    "DHI24H5da8fuPA2pwyxzrHLkttDsW2SgA5yTxu2nJ7fdGRgivqu4uF8p4JI48SEZcRny2IORyeBx2Pr1AXNcPHrtq6Mh"
+    "ZemdoxlT2x7ZH8z3rB0m2e7Ig3fao4m3IgPOd5GQSPlwWz68jGKz7rwW8XmF7oh2dH2xw4Uup3csDkA5yRzjjgkCsXXL"
+    "y5igBhO9lj2yRvkqVZSAQP4eD3PQ855zYi1pX24i4Clcs/O0jHAI/L19hX0J8NPB580SxRFI0KzCZwGHPzDG0jr8xGeM"
+    "kdeBWhc+ErwxqtvGzmT926vOdxALMdyg7R07g5J6LmuP1N7SK4ZQxLsoe2yrYcfdUEthgAo2jaDzjHQVBHq8O4mRgu35"
+    "lKx8DoOD179j2719FeF9HS2hDXDsA7fNJEhHmb1GW47kDOBwBjAJziK08BXQS0R1jaDKiRCMgAgcqVznOOGxjDAZXFc1"
+    "qJihLGRJpo/L3J5OCsrZxuG3rzxgc9AAQeXTa9EWlZSwkwSp6HPPUH07j271iePtettNhKJJHB5cgWQeZsCHay9hkHHH"
+    "yj2wSSKjg8H3H2qORhDIjMBgHe5I+bdwEJ6egGT1AwK5m91J5TK13HIqCIfMqhmXADAglc9SwwcZBOeMU59Yj8plBdWA"
+    "PP3VHbHfH+etfNnxR8UIZrkNs8so8h87g7MgHnJ6rnj3GDwQbFv4PnSN4ZLaVGLlPLhRtmDsBBGQec4JJP3SSOSRzGpP"
+    "/wAS+Jk2khELNNMx8x0wCTjOPvhuvTnIzUcmsIWV1lUjaDudhuzzyDjt2+vHv4hPDJPdtHdGL5NoQqxA6jHzMBwcjkZz"
+    "696+sU8DKzKgJuEYvPA7EEJwNysSeSDkbhgYHOOh+qb9khluNqxXAht3yjBVUbMngKQdy7iCNuSOc8gV5MddIBbiNhiN"
+    "wAcnngjA9O3qfxHqvwt8MSzX5kdCEtchl8tWXdhcnbnJGSpGB0AB6kUr/De1uZwbqzjjiRB5MpwpBwDgLtxtBQHgnn1J"
+    "rkL6aNQY0fyP3e4qJCWZPlGQSSWIOD0OFPcDNC+JJY4z5UzM7N86jkEdM5znOG719QeDfDqW04jnhuBGqCGUNEAyoUDH"
+    "dkAnPUdefeo4/BNpFMbm7EceHLOdw2sTkqSSeQfnGOPuHPIrntRkik8svLIUaVljCpgABELKFIB6EdDx0705tbmdPKh3"
+    "NxgDHIHAPQdenPv6Gun1e5eK0upbaZ1RS5QKhCrnawzwQTk4GOcc8itA+CrMC+jnijUtGSHCth+oDZPIUnACjgEEYHFc"
+    "vq00zwrDBuc3RD7IyfKUE4xuyB255ABBz71xrUx8hkdjhhlSR8vfH19SeTnrXiXxR14wxhLS+kQiRfnUbnbBOemATwMs"
+    "RjHPrUUHgC0NtLIYIURsMsQlBABxtzkMCTuAXd6/8CPPXNw7vMbhxJ5cZlQvKdxBC8cqSTkNweeR605/EEwkRRI7MMgs"
+    "V/PHQ9jnH/1h82eKtY8y+VPMYhTuXeu1ZVfAbr/urkYPI4HRqgl+HymYfKE8t8xlo1VcEjIw2TkhmxwfvcA845iaeNIJ"
+    "7iO6Lndidxghlyc4A6nOMAcAnlSeBIviAhDyW3DDYYk5x1yPoPy60/wV4aubm5NxITNvVGLIwyoPJDOc9CC3JxkA+1X4"
+    "/Htne4BlglZXB2wsdny5AA+b5mJ3dOeFJz2+qdaundDCXVFebKO5AD7M/KQT0yCMjvx0IqBtBmgydroCOrgZ5/DgDj26"
+    "4r6c+F3hqOKFFtY1kyocgJgRg78rIxBUZUtkdAQ3Q8VBJ41sWut32hIk3uAsuSSxwGGCx+vbovauX8Q31t9rL/aVuJhG"
+    "hRZUEiEANuBO35SeRgHAwDwCBT10ScRY8ssdo5TjA7dv8817lHaR6fpLwSIE+XDshEZYblCjABbaScexOeBzU8XjixdJ"
+    "IUkkn2MpjmLhnG0Dcirz03MMDkHJwRjHLX95LOn2qTBkcna9sPLVFJwxcHjIyQPqew5Y2hzhldlVMghk2kKcngk8dcDr"
+    "7V55488TC2WWKeeAXBwnIySAfvFgdw/3SGweh+8afJ43tcyzxXAebeJHUElJAGznGMZ7jAOOc9hXOXflG7ZxJut/O+8j"
+    "KAQGUkcEFsYKkHPTvkU1dDl+WN4yqbSqkgblyMfX9fSvlbxnrcl1Kk1xMscjHJlVmD9AQpLnC4G4cYyfcYqGXxzbP5cb"
+    "NCZJtjKsxKBAQ5I698Mc5PopAFcvqVwzSfabZ5o0ZA6NIAS3AC4xwGx1JLAZHqKemhyruYB9qZBKAMT93np247fXrXn1"
+    "jBHdXkySWz+Wx3TKxZikgbjGwkEnr93POORmi68ZI9sJFlgeMlUdQMNs+VWyFAIK8+hAxwpBrndUv3jYRyRswkUxgRN/"
+    "rcH7xHrwAOrZzxzmiLRmWQqUkDckE9N3JHU4Ofyznrmvfvhd4UPnCSTzBESFRI0C9dpX7p+XG3png4GeK+Rz4nvZIoRc"
+    "pcBCxzGykBdwB2g9d3VTx/dBwTz9TXl2Eie4Cj5kSJiD5m3IwqljntySeM57CvXP7LhVn8sxkgcMCDnBxn6d+vr2r6U8"
+    "HaTbW1upnc+bCAI43dVAIP3B/CD8/OCcY44xUN34r1E3bJLctI/miOMJglk25bdjgEliOcHnnOQRx+pyrJNgSsqDMLpE"
+    "QFMYbIYnqxJAGeR0HJ4p8WlW4iDLGFGwsxboDnjGfTA/p3zD4r1WO3sZpba98qMfJySYwC4A2nPOMKAP4d3GM/MqeOrp"
+    "ZrsqVCT52Rtu3IdpG0Ywu7JDEc5APfrg6zeO5mvEvfNVnyg2MHCFWxnOQBtbPBycNjPAA2hRFIQQSU6sMYPPU55xgYB/"
+    "pXzn8X/E+6VoIJFkSCd5HcqQqDDKCBj5Rwo64AJz1O2WPx7qIuVWfz4zuEfXAJzkEKTyV+UccjJ9c1ympXwiiljSGeFC"
+    "is0TgblyMg49PlAB4644GMMbQbcxkx7G43e+MYxkdM8+35YrwDxBK9xezSF22FmIHLFQH6HJ74OOmO46kQJ4xvJ08kTy"
+    "W8iNuZolCeaMKfmz15JHK9AODkAc5rV3CbQeTKHjiIkX5QSrDHQAbgSeNgGRg5/hxIdHhjbeUWRWGAGOdvXp+Xr3PTFd"
+    "f4K0ffq29IGLId6GCFSvBJyM8H7p54OM43Y5uW/jPz1lLvKIUXeInkZsqsigs3GSfvEE5BJA9xy3ia4eFS91cOSYVDur"
+    "ZAkAYiPChiMnDAgngEYOBugk0XyyuFUuTjeqgYJU8D9Ppj8K/9k="
+    ), "21909a8545604a4668f6029fcdd0ad393adc3934e103993c60fb869dbed207f8", (32, 48)),
 }
 DECODE_REPS = 20
 # [procedural]: a bracketed 3D L-system tree (six generations, 15,625
@@ -922,6 +1174,192 @@ def phase_stream(device, later: list, name_limit):
                       {}, "device_ms"))
 
 
+def _device_kernels(prof) -> int:
+    """Device kernels a torch.profiler session ran (tools/profile_torch_block's
+    count: entries with device time and no host time)."""
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0.0) > 0 and e.cpu_time_total == 0)
+
+
+def _kernels_per_call(fn) -> int:
+    """Device kernels one call of fn runs, under torch.profiler after a
+    warm-up call (up to three sessions: now and then one records no device
+    activity)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = _device_kernels(prof)
+        if n:
+            return n
+    raise AssertionError("torch.profiler saw no device kernels")
+
+
+class _Recorder:
+    """traversal.trace_closest / trace_anyhit wrapped, while in a `with`,
+    to keep (kind, rays, output) of every call."""
+
+    def __init__(self):
+        from mc_path_tracer_tpu_torch.ops.kernels import traversal
+
+        self.traversal, self.calls = traversal, []
+
+    def _wrap(self, kind, fn):
+        def recorded(rays, bvh, geo):
+            out = fn(rays, bvh, geo)
+            kept = tuple(x.clone() for x in out) if isinstance(out, tuple) else out.clone()
+            self.calls.append((kind, rays.clone(), kept))
+            return out
+        return recorded
+
+    def __enter__(self):
+        self.inner = self.traversal.trace_closest, self.traversal.trace_anyhit
+        self.traversal.trace_closest = self._wrap("closest", self.inner[0])
+        self.traversal.trace_anyhit = self._wrap("anyhit", self.inner[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.traversal.trace_closest, self.traversal.trace_anyhit = self.inner
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase_sort(device, name_limit) -> dict:
+    """RenderConfig.sort_rays on the card (the traversal over octant-sorted,
+    dead-last lanes, the JAX package's default): the bench frame with
+    sort_rays on and off in turns, SORT_RUNS each, bit-equal, seconds and
+    launches (one sort_perm per traversal dispatch), and the sorted frame
+    on SHARDS shards of the card bit-equal to them; a replayed train step
+    whose backward meets the forward's hits bit for bit; then, on bench
+    block SORT_BLOCK, each dispatch of sample 0 (caller order, captured with
+    sort_rays off) timed unsorted and sorted (device ms, kernel only), the
+    sort's own device ms and kernels per dispatch, and one sample's device
+    kernels with and without the sort.  Runs after every other frame and
+    before [device-time]: its last part uses torch.profiler.  Returns the
+    sorted and unsorted frames' launches: {path: launches}."""
+    from mc_path_tracer_tpu_torch.models.film import tile_order
+    from mc_path_tracer_tpu_torch.models.integrator import (
+        PIXEL_CHUNK,
+        RenderConfig,
+        _unsorted,
+        camera_params,
+        render_tile_radiance,
+    )
+    from mc_path_tracer_tpu_torch.ops import rng
+    from mc_path_tracer_tpu_torch.ops.kernels import traversal
+    from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
+    from mc_path_tracer_tpu_torch.parallel.render import render_sharded
+
+    sd = phase_scene(device)
+    cam = bench_camera()
+    per = _blocks(WIDTH, HEIGHT) * SPP * (DEPTH - 1)
+    seconds, frames, launches = {True: [], False: []}, {}, {}
+    for i in range(SORT_RUNS):
+        for sort in (True, False) if i % 2 == 0 else (False, True):
+            film, s, got = _frame(sd, cam, WIDTH, HEIGHT,
+                                  RenderConfig(spp=SPP, max_depth=DEPTH, sort_rays=sort))
+            _expect(f"[sort] bench frame sort_rays={sort}", got, {"closest": per, "anyhit": per})
+            if got["sort"] != (2 * per if sort else 0):
+                raise AssertionError(f"[sort] sort_rays={sort}: {got['sort']} sorted dispatches")
+            if sort in frames and not torch.equal(frames[sort], film.ld):
+                raise AssertionError(f"[sort] two bench frames with sort_rays={sort} differ")
+            seconds[sort].append(s)
+            frames[sort], launches[sort] = film.ld, got
+    equal = bool(torch.equal(frames[True], frames[False]))
+    sharded = render_sharded(sd, dataclasses.replace(cam, aspect=WIDTH / HEIGHT).params(device),
+                             WIDTH, HEIGHT, RenderConfig(spp=SPP, max_depth=DEPTH),
+                             rng.prng_key(0), make_mesh(devices=[device] * SHARDS))
+    sharded_equal = bool(torch.equal(sharded, frames[True]))
+    log(f"[sort] bench {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH}, in turns: sort_rays on "
+        f"{', '.join(f'{s:.3f}' for s in seconds[True])} s, off "
+        f"{', '.join(f'{s:.3f}' for s in seconds[False])} s ({name_limit}); launches on "
+        f"{launches[True]}, off {launches[False]}; frames bit-equal {equal}; the sorted "
+        f"frame on {SHARDS} shards bit-equal to the one-device frame {sharded_equal}")
+    if not equal or not sharded_equal:
+        raise AssertionError("[sort] the sorted, unsorted and sharded bench frames differ")
+    del frames, sharded
+
+    # the backward's replay meets the forward's hits: every dispatch of a
+    # replayed 2-spp step on a one-block crop, forward and replay, matched
+    # by their rays
+    px, py = _crop(WIDTH, HEIGHT, SORT_CROP, device)
+    target = torch.full((px.shape[0], 3), GRAD_TARGET, device=device)
+    with _Recorder() as rec:
+        step = _train_step(sd, cam, WIDTH, HEIGHT, px, py,
+                           RenderConfig(spp=2, max_depth=DEPTH), target)
+    forward, replay = rec.calls[: len(rec.calls) // 2], rec.calls[len(rec.calls) // 2:]
+    matched = sum(any(k == k2 and torch.equal(r, r2) and _same(o, o2) for k2, r2, o2 in forward)
+                  for k, r, o in replay)
+    log(f"[sort] replayed 2-spp train step on a {SORT_CROP}x{SORT_CROP} crop: {len(forward)} "
+        f"forward and "
+        f"{len(replay)} replayed traversal dispatches, {matched} replayed dispatches with the "
+        f"rays and hits of a forward one (launches forward {step['forward']}, backward "
+        f"{step['backward']})")
+    if len(forward) != 2 * 2 * (DEPTH - 1) or matched != len(replay) or \
+            step["forward"] != step["backward"]:
+        raise AssertionError("[sort] the replay did not meet the forward's hits")
+
+    # block SORT_BLOCK, sample 0: each dispatch unsorted and sorted
+    pxi, pyi = tile_order(WIDTH, HEIGHT)
+    blk = slice(SORT_BLOCK * PIXEL_CHUNK, (SORT_BLOCK + 1) * PIXEL_CHUNK)
+    px = torch.from_numpy(pxi[blk].astype(np.float32)).to(device)
+    py = torch.from_numpy(pyi[blk].astype(np.float32)).to(device)
+    params = camera_params(cam, WIDTH, HEIGHT, device)
+
+    def sample(sort):
+        with torch.no_grad():
+            return render_tile_radiance(sd, params, WIDTH, HEIGHT, px, py, rng.prng_key(0),
+                                        RenderConfig(spp=1, max_depth=DEPTH, sort_rays=sort))
+
+    with _Recorder() as rec:
+        sample(False)
+    bvh, geo = sd.bvh, sd.tris.geo
+    bounce = {"closest": 0, "anyhit": 1}
+    dispatches, sort_kernels = [], 0
+    for kind, rays, out in rec.calls:
+        fn = traversal.trace_closest if kind == "closest" else traversal.trace_anyhit
+        rd, live = rays[:, 3:6], rays[:, 6] > 0.5
+        perm = traversal.sort_perm(rd, live)
+        sorted_rays = rays[perm]
+        got = fn(sorted_rays, bvh, geo)
+        back = (tuple(_unsorted(x, perm) for x in got) if kind == "closest"
+                else _unsorted(got, perm))
+        if not _same(back, out):
+            raise AssertionError(f"[sort] block {SORT_BLOCK}: a sorted {kind} dispatch differs")
+        ref = out[1] if kind == "closest" else out
+
+        def overhead(rd=rd, live=live, rays=rays, ref=ref):
+            p = traversal.sort_perm(rd, live)
+            rays[p]
+            _unsorted(ref, p)
+
+        unsorted_ms = _device_ms(lambda f=fn, r=rays: f(r, bvh, geo), 20)
+        sorted_ms = _device_ms(lambda f=fn, r=sorted_rays: f(r, bvh, geo), 20)
+        sort_ms = _device_ms(overhead, 20)
+        kernels = _kernels_per_call(overhead)
+        sort_kernels += kernels
+        label = "primary" if kind == "closest" and bounce[kind] == 0 else f"bounce {bounce[kind]}"
+        bounce[kind] += 1
+        dispatches.append(dict(kind=kind, label=label, rays=rays.shape[0],
+                               live=int(live.sum()), unsorted_ms=unsorted_ms,
+                               sorted_ms=sorted_ms, sort_ms=sort_ms, sort_kernels=kernels))
+        log(f"[sort] block {SORT_BLOCK} sample 0 {kind} {label}: {rays.shape[0]} rays "
+            f"({int(live.sum())} live), device ms unsorted {unsorted_ms:.4f}, sorted "
+            f"{sorted_ms:.4f} (kernel only); the sort (key, sort, gather, scatter) "
+            f"{sort_ms:.4f} ms in {kernels} device kernels ({name_limit})")
+    per_sample = {sort: _kernels_per_call(lambda s=sort: sample(s)) for sort in (True, False)}
+    log(f"[sort] block {SORT_BLOCK}, one sample: {per_sample[True]} device kernels with "
+        f"sort_rays, {per_sample[False]} without ({per_sample[True] - per_sample[False]} for "
+        f"the sort; {sort_kernels} counted dispatch by dispatch) ({name_limit})")
+    return {"sort_frame": launches[True], "unsorted_frame": launches[False]}
+
+
 def _frame(scene, cam, width, height, cfg, key=0, device="cuda"):
     """One render of `scene` (a Scene, built on `device`, or a SceneData)
     with the launch counts set to 0 just before and read just after:
@@ -938,8 +1376,10 @@ def _frame(scene, cam, width, height, cfg, key=0, device="cuda"):
 
 
 def _expect(label, got, want):
-    """Fail unless the launch counts are exactly `want` (others 0)."""
-    wrong = {k: got[k] for k in got if got[k] != want.get(k, 0)}
+    """Fail unless the kernel launches and plain calls are exactly `want`
+    (others 0); sort_perm calls ("sort") are checked where they are asked
+    for, in [sort]."""
+    wrong = {k: got[k] for k in got if k != "sort" and got[k] != want.get(k, 0)}
     if wrong:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
@@ -2386,6 +2826,7 @@ def main() -> int:
     phase_cli(out_dir, name_limit)
     phase_interactive(device, name_limit)
     phase_stream(device, later, name_limit)
+    new_paths.update(phase_sort(device, name_limit))
     phase_device_times(later, name_limit)
     phase_preview_trace(device, name_limit)
     phase_imports()

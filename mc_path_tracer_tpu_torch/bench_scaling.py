@@ -126,7 +126,9 @@ def grad_gap(got, want) -> float:
 def shard_launches(fn):
     """fn()'s result, with parallel.render's render_tile_radiance wrapped to
     read the launch counters (host counts, no synchronisation) around each
-    shard's call: (result, [launches of each shard's call, in call order]).
+    shard's call: (result, [launches of each shard's call, in call order]),
+    every ops.kernels.LAUNCHES key: kernel launches, plain calls and the
+    sorted dispatches' sort_perm calls.
     A step's backward replays its samples without that call and is not
     counted here."""
     from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES

@@ -32,6 +32,13 @@ class Film(NamedTuple):
     def width(self) -> int:
         return self.ld.shape[1]
 
+    def accumulate(self, ld_add: torch.Tensor, samples_add) -> "Film":
+        return Film(self.ld + ld_add, self.samples + samples_add)
+
+    def clear(self) -> "Film":
+        """Progressive restart: zero radiance and sample counts."""
+        return Film(torch.zeros_like(self.ld), torch.zeros_like(self.samples))
+
     def to_display(self, exposure: float = 1.0, view: str = "color") -> torch.Tensor:
         if view == "heatmap":
             return tonemap.heatmap(self.ld, self.samples, exposure)

@@ -19,9 +19,9 @@ RenderConfig.accel): "auto" on a CUDA scene of at most
 DENSE_ACCEL_MAX_TRIS triangles takes the dense kernel (csrc/dense.cu),
 any larger one the traversal kernel (csrc/traversal.cu); "dense" forces
 the dense kernel; "pallas", "wide" and "bvh", the JAX package's BVH
-routes, all take the traversal kernel; "brute" calls the plain
-brute-force version.  On CPU tensors every kernel wrapper runs that plain
-version.
+routes, all take the traversal kernel ("auto" and "pallas" over sorted
+lanes, below); "brute" calls the plain brute-force version.  On CPU
+tensors every kernel wrapper runs that plain version.
 
 Estimator (the reference's wavefront kernels, as in the JAX package):
 environment radiance on primary miss, emission on a primary hit of an
@@ -54,8 +54,14 @@ backward re-runs the sample, every kernel dispatch included, to rebuild its
 graph.  Randomness is threefry keyed by pixel id and the kernels are
 deterministic, so the replay meets the hits of the forward.  A render of a
 scene that nothing differentiates runs as a plain forward.
-`sort_rays` is accepted but not applied: sorting only permutes kernel
-lanes and never changes the result.
+
+`sort_rays` (default on, as in the JAX package) dispatches the traversal
+kernel over lanes grouped by direction octant, dead lanes last
+(traversal.sort_perm), on the routes where the JAX package sorts: the
+traversal reached from accel "auto" or "pallas" (`dispatch_route`).  The
+packed rays are gathered once in sorted order and the winners scattered
+back to caller order; the sort is stable on integer keys, so a replayed
+sample meets the forward's hits, and per-ray results never change.
 """
 
 from __future__ import annotations
@@ -92,6 +98,9 @@ DENSE_ACCEL_MAX_TRIS = 2048
 ACCELS = ("auto", "pallas", "dense", "wide", "bvh", "brute")
 # the JAX package's BVH routes: on the card all take the traversal kernel
 BVH_ACCELS = ("pallas", "wide", "bvh")
+# the accels whose traversal the JAX package dispatches over sorted lanes
+# (its "pallas" route, which "auto" takes on the accelerator)
+SORTED_ACCELS = ("auto", "pallas")
 
 
 @dataclass(frozen=True)
@@ -108,7 +117,8 @@ class RenderConfig:
     jitter: bool = False           # the reference shoots pixel centers only
     reference_quirks: bool = False
     rr_start: int = RR_START
-    # no effect yet: sorting only permutes kernel lanes (ROADMAP Queue 1)
+    # octant-sorted, dead-last traversal dispatches (dispatch_route);
+    # sorting permutes kernel lanes only, never the result
     sort_rays: bool = True
     # one mixture sample shared by the BRDF-sample estimator and the
     # continuation (about 1.45x per-sample variance on glossy surfaces in
@@ -146,12 +156,31 @@ def resolve_accel(num_triangles: int, device, accel: str) -> str:
     return "dense" if on_card and num_triangles <= DENSE_ACCEL_MAX_TRIS else "bvh"
 
 
+def dispatch_route(num_triangles: int, device, accel: str, sort_rays: bool) -> str:
+    """resolve_accel's route, with the traversal ("bvh") taken over sorted
+    lanes ("sorted") where the JAX package sorts: `sort_rays` on and accel
+    "auto" or "pallas".  "wide" and "bvh" stay unsorted, as there."""
+    route = resolve_accel(num_triangles, device, accel)
+    return "sorted" if route == "bvh" and sort_rays and accel in SORTED_ACCELS else route
+
+
+def _unsorted(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x of sorted lanes back in caller order: one scatter."""
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
 def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
     rays = pack_rays(ro, rd, mask)
     if route == "brute":
         _, tri_id = traversal.closest_plain(rays, scene.tris.geo)
     elif route == "dense":
         _, tri_id = dense.dense_closest(rays, scene.tris.geo)
+    elif route == "sorted":
+        perm = traversal.sort_perm(rd, mask)
+        _, tri_id = traversal.trace_closest(rays[perm], scene.bvh, scene.tris.geo)
+        tri_id = _unsorted(tri_id, perm)
     else:
         _, tri_id = traversal.trace_closest(rays, scene.bvh, scene.tris.geo)
     return _detach(finish_closest(scene.tris, tri_id, ro, rd))
@@ -163,6 +192,9 @@ def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
         return traversal.anyhit_plain(rays, scene.tris.geo)
     if route == "dense":
         return dense.dense_anyhit(rays, scene.tris.geo)
+    if route == "sorted":
+        perm = traversal.sort_perm(rd, mask)
+        return _unsorted(traversal.trace_anyhit(rays[perm], scene.bvh, scene.tris.geo), perm)
     return traversal.trace_anyhit(rays, scene.bvh, scene.tris.geo)
 
 
@@ -177,7 +209,7 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
         pid = torch.arange(num_rays, dtype=torch.int32, device=ray_o.device)
     quirks = cfg.reference_quirks
     reuse = cfg.reuse_brdf_ray and not quirks
-    route = resolve_accel(scene.tris.num_triangles, ray_o.device, cfg.accel)
+    route = dispatch_route(scene.tris.num_triangles, ray_o.device, cfg.accel, cfg.sort_rays)
     lights = lights_mod.with_packed(scene.lights)
     n_lights = lights_mod.num_lights(lights)
     aid = lights_mod.area_light_id(lights)  # -1 when there is no area light

@@ -126,3 +126,8 @@ def make_material_table(albedo, roughness, metallic, fresnel=None, emissive=None
         dev(col(emissive, (m, 3), 0.0)),
         *(dev(ids(tex.get(name))) for name in TEXTURE_FIELDS),
     )
+
+
+def default_material(device=DEFAULT_DEVICE) -> MaterialTable:
+    """Reference defaults: white albedo, roughness 1, metallic 0, F0 0.04."""
+    return make_material_table([[1.0, 1.0, 1.0]], 1.0, 0.0, device=device)

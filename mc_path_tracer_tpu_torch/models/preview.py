@@ -15,8 +15,10 @@ visualizer (port of mc_path_tracer_tpu/models/preview.py).
 Output modes mirror the G-buffer debug menu: PREVIEW_MODES.
 
 Primary rays and shadow taps go through the integrator's `_intersect` /
-`_occluded` on the route `resolve_accel` picks (on the card: the dense
-kernel up to DENSE_ACCEL_MAX_TRIS triangles, the traversal kernel above).
+`_occluded` on the route `dispatch_route` picks with sort_rays on, as the
+JAX package's preview takes RenderConfig()'s (on the card: the dense
+kernel up to DENSE_ACCEL_MAX_TRIS triangles, the traversal kernel over
+sorted lanes above).
 The frame runs in PIXEL_CHUNK-pixel chunks in row-major order, so the
 [R, T] products of the IBL terms stay bounded by the chunk (65,536 x 2,048
 floats, 0.5 GB) at any frame size; `depth` is normalised by the whole
@@ -42,7 +44,7 @@ from mc_path_tracer_tpu_torch.models.integrator import (
     _occluded,
     built_scene,
     camera_params,
-    resolve_accel,
+    dispatch_route,
 )
 from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import brdf, envmap, rng
@@ -280,7 +282,7 @@ def preview_pixels(scene: SceneData, cam, width: int, height: int, px, py, mode:
     PIXEL_CHUNK-pixel chunks.  `depth` is normalised by the largest t over
     these pixels.  `accel` picks the intersection route, as
     RenderConfig.accel does."""
-    route = resolve_accel(scene.tris.num_triangles, px.device, accel)
+    route = dispatch_route(scene.tris.num_triangles, px.device, accel, sort_rays=True)
     chunks = []
     for s0 in range(0, px.shape[0], PIXEL_CHUNK):
         px_c, py_c = px[s0 : s0 + PIXEL_CHUNK], py[s0 : s0 + PIXEL_CHUNK]

@@ -50,8 +50,10 @@ class SceneData(NamedTuple):
     atlas: TextureAtlas | None = None  # None or empty: factor-only materials
 
 
-def _mesh_to_soa(positions, normals, uvs, indices, material_id, tangents=None):
-    """Host triangle arrays of one mesh (keys of TriangleSoA + tan0..2)."""
+def _mesh_to_soa(positions, normals, uvs, indices, material_id,
+                 tangents=None) -> TriangleSoA:
+    """Host triangle arrays (numpy) of one mesh, tangents included; `attrs`
+    and `geo` are left to the BVH reorder."""
     p = np.asarray(positions, np.float32)
     n = np.asarray(normals, np.float32)
     uv = np.asarray(uvs, np.float32)
@@ -63,18 +65,27 @@ def _mesh_to_soa(positions, normals, uvs, indices, material_id, tangents=None):
     e1, e2 = v1 - v0, v2 - v0
     fn = np.cross(e1, e2)
     fn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-12)
-    return {
-        "v0": v0, "e1": e1.astype(np.float32), "e2": e2.astype(np.float32),
-        "n0": n[idx[:, 0]], "n1": n[idx[:, 1]], "n2": n[idx[:, 2]],
-        "uv0": uv[idx[:, 0]], "uv1": uv[idx[:, 1]], "uv2": uv[idx[:, 2]],
-        "material_id": np.full(idx.shape[0], material_id, np.int32),
-        "face_normal": fn.astype(np.float32),
-        "tan0": tan[idx[:, 0]], "tan1": tan[idx[:, 1]], "tan2": tan[idx[:, 2]],
-    }
+    return TriangleSoA(
+        v0=v0, e1=e1.astype(np.float32), e2=e2.astype(np.float32),
+        n0=n[idx[:, 0]], n1=n[idx[:, 1]], n2=n[idx[:, 2]],
+        uv0=uv[idx[:, 0]], uv1=uv[idx[:, 1]], uv2=uv[idx[:, 2]],
+        material_id=np.full(idx.shape[0], material_id, np.int32),
+        face_normal=fn.astype(np.float32),
+        tan0=tan[idx[:, 0]], tan1=tan[idx[:, 1]], tan2=tan[idx[:, 2]],
+    )
 
 
-def _concat(parts: list[dict]) -> dict:
-    return {k: np.concatenate([p[k] for p in parts], axis=0) for k in parts[0]}
+def concat_soa(parts: list[TriangleSoA]) -> TriangleSoA:
+    """Host triangle arrays of several meshes as one TriangleSoA of numpy
+    arrays, in part order.  `attrs` and `geo` are left to the BVH reorder;
+    tangents are kept only when every part has them."""
+    fields = [f for f in TriangleSoA._fields if f not in ("attrs", "geo")]
+    if any(p.tan0 is None for p in parts):
+        fields = [f for f in fields if not f.startswith("tan")]
+    return TriangleSoA(**{
+        f: np.concatenate([np.asarray(getattr(p, f)) for p in parts], axis=0)
+        for f in fields
+    })
 
 
 def _center_of_mass(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
@@ -123,7 +134,7 @@ class ObjectEntry:
     scale: np.ndarray = dataclass_field(
         default_factory=lambda: np.ones(3, np.float32))
     _centroid: np.ndarray | None = None
-    _baked: dict | None = None
+    _baked: TriangleSoA | None = None
 
     @property
     def centroid(self) -> np.ndarray:
@@ -134,7 +145,7 @@ class ObjectEntry:
             )
         return self._centroid
 
-    def bake(self) -> dict:
+    def bake(self) -> TriangleSoA:
         """world = T + C + R S (v - C); normals by the inverse-transpose
         R S^-1, tangents by R S (w kept)."""
         if self._baked is not None:
@@ -335,7 +346,7 @@ class Scene:
         if not self.material_albedo:
             self.add_material()
         bvh, tris, builder = build_bvh(
-            _concat([o.bake() for o in self.objects]),
+            concat_soa([o.bake() for o in self.objects])._asdict(),
             max_leaf=self.max_leaf, method=self.bvh_method, device=device,
         )
         self.builder = builder

@@ -215,3 +215,24 @@ def finish_closest(tris: TriangleSoA, tri_id, ray_o, ray_d) -> Hit:
     v = torch.where(hit, v, 0.0)
     t = torch.where(hit, t_exact, K_HUGE)
     return _shade_attrs(tris, tri_id, u, v, ray_o, ray_d, t, hit)
+
+
+def intersect_brute(tris: TriangleSoA, ray_o: torch.Tensor, ray_d: torch.Tensor) -> Hit:
+    """Closest hit of rays [R, 3] against all triangles: the "brute"
+    route's plain version (ties to the lowest index), shaded as a
+    traversal's winner is (finish_closest).  Needs the leaf-order `geo`
+    rows of a built scene."""
+    # imported here: ops.kernels.traversal imports this module
+    from mc_path_tracer_tpu_torch.ops.kernels.traversal import closest_plain
+
+    _, tri_id = closest_plain(pack_rays(ray_o, ray_d), tris.geo)
+    return finish_closest(tris, tri_id, ray_o, ray_d)
+
+
+def occluded_brute(tris: TriangleSoA, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                   t_max: torch.Tensor | None = None) -> torch.Tensor:
+    """Any-hit [R] bool: some triangle hit with t <= t_max (unbounded when
+    t_max is None), the "brute" route's plain version."""
+    from mc_path_tracer_tpu_torch.ops.kernels.traversal import anyhit_plain
+
+    return anyhit_plain(pack_rays(ray_o, ray_d, t_max=t_max), tris.geo)

@@ -3,8 +3,11 @@ per kernel with its plain PyTorch version (`traversal`, `dense`, `tonemap`).
 
 A wrapper runs the plain version only because its tensors lie on the CPU;
 on a CUDA tensor it launches the kernel or raises.  LAUNCHES counts kernel
-launches per entry point, where the wrapper launches, and plain-version
-calls ("plain"), so a run can show which path it took.
+launches per entry point, where the wrapper launches, plain-version calls
+("plain"), so a run can show which path it took, and the permutations
+`traversal.sort_perm` builds for the sorted traversal dispatches ("sort":
+plain PyTorch, several device launches each, none of them a kernel of
+this package).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ LAUNCHES = {
     "dense_closest": 0, "dense_anyhit": 0,   # csrc/dense.cu
     "tonemap": 0,                            # csrc/tonemap.cu
     "plain": 0,                              # plain-version calls
+    "sort": 0,                               # traversal.sort_perm calls
 }
 
 

@@ -21,6 +21,9 @@ are all rays x all triangles with lowest-index ties.  A wrapper runs the
 plain version only because its tensors lie on the CPU; on a CUDA tensor it
 launches the kernel or raises.  LAUNCHES (ops/kernels) counts the launches.
 `walk_plain` is a test and counting aid, never the main path.
+
+`sort_perm` orders a dispatch's lanes by direction octant, dead lanes
+last (RenderConfig.sort_rays, models/integrator.py).
 """
 
 from __future__ import annotations
@@ -106,6 +109,25 @@ def trace_anyhit(rays: torch.Tensor, bvh: intersect.BVHArrays, geo: torch.Tensor
                    nodes.data_ptr(), nodes.shape[0], geo.data_ptr(), geo.shape[0], cap,
                    occ.data_ptr(), stream)
     return occ
+
+
+def sort_perm(rd: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Stable permutation [R] (int64) that groups a dispatch's lanes by
+    direction octant, (dx > 0) * 4 + (dy > 0) * 2 + (dz > 0), with dead
+    lanes (mask False) last as bin 8: the JAX package's
+    `_sort_perm(rd, mask)` (traversal_kernel.py, `_dir_bins(rd, fine=False)`
+    and its global argsort).  Stability keeps the caller's tile order inside
+    each bin and makes the permutation a function of the inputs alone, so a
+    replayed sample meets the forward's lanes.  The TPU's block-local fine
+    re-sort is left out: it lines 64-ray subgroups of a 256-ray block up
+    with the arena kernel's subgroup bitmasks, which this kernel does not
+    have.  Plain PyTorch on either device (one sort, no host sync)."""
+    LAUNCHES["sort"] += 1
+    key = ((rd[:, 0] > 0).to(torch.int32) * 4 + (rd[:, 1] > 0).to(torch.int32) * 2
+           + (rd[:, 2] > 0).to(torch.int32))
+    if mask is not None:
+        key = torch.where(mask, key, 8)
+    return torch.sort(key, stable=True).indices
 
 
 def _chunks(rays: torch.Tensor, geo: torch.Tensor):

@@ -29,6 +29,10 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Normalize over the last axis; safe at ~zero length."""
     return v * torch.reciprocal(torch.sqrt(torch.clamp(dot(v, v), min=eps)))[..., None]
@@ -46,6 +50,16 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """glm-style reflect: incident direction i about normal n."""
     return i - 2.0 * dot(n, i)[..., None] * n
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luminance (jek::luminance)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device)
+    return torch.sum(rgb * w, dim=-1)
+
+
+def mix(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return a * (1.0 - t) + b * t
 
 
 def build_onb(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -118,3 +132,16 @@ def look_at(eye, center, up, device=DEFAULT_DEVICE) -> torch.Tensor:
     m[1, 3] = -torch.dot(u, eye)
     m[2, 3] = torch.dot(f, eye)
     return m.to(resolve_device(device))
+
+
+def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Homogeneous transform of points p [..., 3] by m [4, 4] with the
+    w-divide, in full f32 (keep TF32 matmuls off on the card)."""
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    out = ph @ m.T
+    return out[..., :3] / out[..., 3:4]
+
+
+def transform_dir(m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Transform directions d [..., 3] by the linear part of m [4, 4]."""
+    return d @ m[:3, :3].T

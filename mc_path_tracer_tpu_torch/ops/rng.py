@@ -81,6 +81,14 @@ def uniform(key: torch.Tensor, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
     return _bits_to_unit(b1 ^ b2)
 
 
+def uniforms(key: torch.Tensor, shape, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """`n` independent uniform [0, 1) variates per ray, [*shape, n] f32:
+    `jax.random.uniform(key, (*shape, n))`, whose partitionable threefry
+    counts the flat index over the whole shape."""
+    shape = (*shape, n)
+    return uniform(key, int(torch.Size(shape).numel()), device).reshape(shape)
+
+
 def pixel_uniforms(key: torch.Tensor, pid: torch.Tensor, n: int) -> torch.Tensor:
     """Per-pixel uniform streams: `n` variates per lane keyed by the lane's
     pixel id, so a pixel's noise does not depend on how the frame is cut

@@ -7,18 +7,14 @@ from __future__ import annotations
 
 import torch
 
+from mc_path_tracer_tpu_torch.ops.math import luminance, mix
+
 
 def reinhard(ld: torch.Tensor, samples: torch.Tensor, exposure) -> torch.Tensor:
     """Accumulated radiance [..., 3] + per-pixel sample counts [...] ->
     display RGB in [0, 1]."""
     c = ld / torch.clamp(samples, min=1.0)[..., None] * exposure
     return c / (c + 1.0)
-
-
-def luminance(rgb: torch.Tensor) -> torch.Tensor:
-    """Rec.601 luminance."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device)
-    return torch.sum(rgb * w, dim=-1)
 
 
 def heatmap(ld: torch.Tensor, samples: torch.Tensor, exposure) -> torch.Tensor:
@@ -29,12 +25,9 @@ def heatmap(ld: torch.Tensor, samples: torch.Tensor, exposure) -> torch.Tensor:
     def remap(lo, hi):
         return torch.clamp((lum - lo) / (hi - lo), 0.0, 1.0)[..., None]
 
-    def mix(a, b, t):
-        a = torch.tensor(a, dtype=ld.dtype, device=ld.device)
-        b = torch.tensor(b, dtype=ld.dtype, device=ld.device)
-        return a * (1.0 - t) + b * t
-
-    blue, green, yellow, red = (0.0, 0.0, 1.0), (0.0, 1.0, 0.0), (1.0, 1.0, 0.0), (1.0, 0.0, 0.0)
+    blue, green, yellow, red = (
+        torch.tensor(c, dtype=ld.dtype, device=ld.device)
+        for c in ((0.0, 0.0, 1.0), (0.0, 1.0, 0.0), (1.0, 1.0, 0.0), (1.0, 0.0, 0.0)))
     low = mix(blue, green, remap(0.0, 0.15))
     mid = mix(green, yellow, remap(0.15, 0.5))
     high = mix(yellow, red, remap(0.5, 1.0))

@@ -1,6 +1,6 @@
 """Image IO: Radiance .hdr, PNG and JPEG loading, PNG output (the port's
 copy of mc_path_tracer_tpu/utils/image.py's `load_hdr`, `_load_radiance_hdr`
-and `write_png`, and `read_png` / utils/jpeg.read_jpeg for the images that
+and `write_png`, and `read_png` / utils/jpeg.decode_jpeg for the images that
 the JAX package decodes with PIL and imageio).
 
 PNG encoding and decoding use the standard library's zlib and JPEG
@@ -15,7 +15,7 @@ import zlib
 
 import numpy as np
 
-from mc_path_tracer_tpu_torch.utils.jpeg import read_jpeg
+from mc_path_tracer_tpu_torch.utils.jpeg import decode_jpeg
 
 
 def load_hdr(path: str) -> np.ndarray:
@@ -24,7 +24,9 @@ def load_hdr(path: str) -> np.ndarray:
     decodes Radiance files as 8-bit LDR).  .png, .jpg and .jpeg give what
     the JAX package's `imageio.v3.imread(path).astype(float32)` gives, then
     the same channel handling: raw sample values, not scaled to [0, 1]
-    (_png_as_imageio lists each PNG kind); other formats raise ValueError."""
+    (_png_as_imageio lists each PNG kind; a JPEG gives PIL's pixels, so a
+    CMYK JPEG keeps its first three channels, C, M and Y as PIL stores
+    them); other formats raise ValueError."""
     lower = path.lower()
     if lower.endswith(".hdr"):
         return _load_radiance_hdr(path)
@@ -34,7 +36,7 @@ def load_hdr(path: str) -> np.ndarray:
                          "are not decoded")
     with open(path, "rb") as f:
         data = f.read()
-    img = _png_as_imageio(data, path) if lower.endswith(".png") else read_jpeg(data, path)
+    img = _png_as_imageio(data, path) if lower.endswith(".png") else decode_jpeg(data, path)
     img = img.astype(np.float32)
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)

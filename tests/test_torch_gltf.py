@@ -68,10 +68,10 @@ def _with_header(data: bytes, **fields) -> bytes:
 def test_undecoded_images_are_refused(kind, tmp_path):
     """What the port still refuses: an interlace method the PNG
     specification does not define, a bit depth its colour type does not
-    allow (16-bit palette), and an arithmetic-coded JPEG (ROADMAP Queue 1),
-    which PIL's libjpeg-turbo decodes; a glTF file with that JPEG still
-    loads without textures, as in the JAX package.  Interlaced, 16-bit and
-    JPEG images themselves decode: tests/test_torch_images.py."""
+    allow (16-bit palette), and a 12-bit JPEG, which PIL refuses too
+    (ROADMAP Queue 1); a glTF file with that JPEG still loads without
+    textures, as in the JAX package.  Interlaced, 16-bit and JPEG images
+    themselves decode: tests/test_torch_images.py."""
     png = chip_smoke.encode_png(np.zeros((4, 4, 3), np.uint8))
     if kind == "interlaced":
         with pytest.raises(ValueError, match="tile.png: malformed PNG header"):
@@ -86,9 +86,11 @@ def test_undecoded_images_are_refused(kind, tmp_path):
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
     sof = buf.getvalue().index(b"\xff\xc0")
     images = chip_smoke.glb_images()
-    images[0] = buf.getvalue()[: sof + 1] + b"\xc9" + buf.getvalue()[sof + 2 :]
+    images[0] = buf.getvalue()[: sof + 1] + b"\xc1\x00\x11\x0c" + buf.getvalue()[sof + 5 :]
     path = chip_smoke.write_textured_glb(tmp_path / "jpeg.glb", images)
-    with pytest.raises(ValueError, match="image 0 .*SOF9 .arithmetic.*ROADMAP Queue 1"):
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(images[0])).convert("RGB")
+    with pytest.raises(ValueError, match="image 0 .*12-bit JPEG samples.*PIL. refuses too"):
         tgltf.load_gltf(str(path))
     # without textures the file loads, as in the JAX package
     assert len(tgltf.load_gltf(str(path), load_textures=False).meshes) == 3

@@ -275,7 +275,8 @@ def test_sharded_step_gradients_on_2_and_4_shards(port, target, steps, shards):
 def test_shard_launch_counts_are_exact(port, monkeypatch):
     """4 shards of the frame run in turn on the caller's thread: each
     shard's plain calls read around its call are its own (one closest and
-    one fused any-hit dispatch per sample), and add up to the frame's."""
+    one fused any-hit dispatch per sample, each over sorted lanes: one
+    sort_perm call per dispatch), and add up to the frame's."""
     sd, cam = port
     cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
     inner, threads = tpar.render_tile_radiance, []
@@ -290,7 +291,8 @@ def test_shard_launch_counts_are_exact(port, monkeypatch):
         sd, cam, W, H, cfg, key=trng.prng_key(0), mesh=cpu_mesh(4)))
     assert LAUNCHES["plain"] - before == 4 * 2 * SPP
     assert [got["plain"] for got in shards] == [2 * SPP] * 4
-    assert all(sum(got.values()) == got["plain"] for got in shards)
+    assert all(got["sort"] == got["plain"] and sum(got.values()) == 2 * got["plain"]
+               for got in shards)
     assert threads == [threading.get_ident()] * 4
 
 
