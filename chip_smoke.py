@@ -16,6 +16,13 @@ fails unless each dispatch went through the expected kernel:
                     traversal kernel
   [parity]          kernel route against plain route on a 64x64 crop
   [tonemap]         the tone-map kernel against plain on the bench film
+  [api]             the JAX package's public traversal routes
+                    (ops/wide_bvh.intersect_wide / occluded_wide,
+                    ops/intersect.intersect_bvh / occluded_bvh) on bench
+                    block 15's 65,536 primary rays and 131,072 any-hit
+                    lanes: one kernel launch each, bit-equal to the
+                    integrator's dispatch (sorted and unsorted) and to the
+                    plain version on every live lane, timed
   [sharded]         render_sharded of the bench frame on two shards of the
                     card (make_mesh(devices=["cuda:0"] * 2)), the shards
                     enqueued in turn: bit-equal to [render]'s frame, seconds
@@ -104,6 +111,11 @@ fails unless each dispatch went through the expected kernel:
                     restarts on a key, a mouse move and an object drag;
                     frame() through the tone-map kernel, frame_to_ansi
                     (run_tty needs a terminal and is not run)
+  [gate]            the on-card gate (python3 -m
+                    mc_path_tracer_tpu_torch.tests_tpu, the twin of
+                    tests_tpu.py) at its full size: every check passes or
+                    is skipped for an asset golden; TESTS_TORCH_GPU.json
+                    beside the PNGs
   [stream]          the traversal kernel on 1,003,520 triangles (the TPU
                     streaming kernel's contract) against plain
   [sort]            RenderConfig.sort_rays: the bench frame with sorted and
@@ -160,6 +172,7 @@ ANYHIT_RAYS = 131072      # one block's fused shadow + visibility dispatch
 CROP = 64
 AREA_SIZE, AREA_SPP, AREA_DEPTH = 256, 64, 3     # config2 as configured
 STREAM_RAYS = 2048
+API_RAYS = 65536          # [api]: one block's primary rays, twice as many any-hit lanes
 # the configs' triangle counts (procedural stand-ins where assets are absent)
 CONFIG_TRIS = {1: 2304, 3: 4096, 4: 13826, 5: 96770}
 CONFIG5_SPP = 4           # config5's 250 spp cut to fit the run's time
@@ -912,6 +925,96 @@ def phase_route_parity(sd):
                  RenderConfig(spp=SPP, max_depth=DEPTH))
 
 
+def phase_api(sd, device, name_limit) -> dict:
+    """The JAX package's public traversal routes on the bench scene:
+    ops/wide_bvh.intersect_wide / occluded_wide and ops/intersect.
+    intersect_bvh / occluded_bvh on bench block 15's API_RAYS primary rays
+    and the 2 x API_RAYS any-hit lanes of their hits (shadow rays toward
+    the sun, visibility rays along random bounce directions with a random
+    t_max on a third of them), each call counted from 0 (one kernel launch,
+    no plain call) and timed; every output bit-equal to the integrator's
+    own dispatch, unsorted ("bvh", the route of accel "wide" / "bvh") and
+    sorted (the default), and to the plain version on every live lane.
+    Returns the four calls' launches."""
+    from mc_path_tracer_tpu_torch.models.film import tile_order
+    from mc_path_tracer_tpu_torch.models.integrator import _intersect, _occluded
+    from mc_path_tracer_tpu_torch.ops import intersect
+    from mc_path_tracer_tpu_torch.ops.kernels import traversal
+    from mc_path_tracer_tpu_torch.ops.wide_bvh import WideBVH, intersect_wide, occluded_wide
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    pxi, pyi = tile_order(WIDTH, HEIGHT)
+    blk = slice(15 * API_RAYS, 16 * API_RAYS)
+    px = torch.from_numpy(pxi[blk].astype(np.float32)).to(device)
+    py = torch.from_numpy(pyi[blk].astype(np.float32)).to(device)
+    ro, rd = _camera_rays(bench_camera(), WIDTH, HEIGHT, px, py, device)
+    ro_b, rd_b, h = _bounce_rays(sd, ro, rd, gen, device)
+    light = torch.tensor([0.4, 1.0, 0.2], device=device)
+    so = torch.cat([h.position + h.normal * 0.01, ro_b])
+    sdir = torch.cat([(light / light.norm()).expand_as(ro_b), rd_b])
+    smask = torch.cat([h.hit, h.hit])
+    bounded = torch.rand(so.shape[0], generator=gen, device=device) < 1 / 3
+    t_max = torch.where(bounded, 0.5 + 20 * torch.rand(so.shape[0], generator=gen,
+                                                         device=device), 1e32)
+    wide = WideBVH(sd.bvh, sd.tris.geo)
+    calls = {
+        "intersect_wide": (lambda: intersect_wide(wide, sd.tris, ro, rd), "closest"),
+        "intersect_bvh": (lambda: intersect.intersect_bvh(sd.bvh, sd.tris, ro, rd), "closest"),
+        "occluded_wide": (lambda: occluded_wide(wide, so, sdir, smask, t_max), "anyhit"),
+        "occluded_bvh": (lambda: intersect.occluded_bvh(sd.bvh, sd.tris, so, sdir, mask=smask,
+                                                        t_max=t_max), "anyhit"),
+    }
+    want = {"closest": {r: _intersect(sd, r, ro, rd) for r in ("bvh", "sorted")},
+            "anyhit": {r: _occluded(sd, r, so, sdir, smask, t_max) for r in ("bvh", "sorted")}}
+    plain = {"closest": traversal.closest_plain(intersect.pack_rays(ro, rd), sd.tris.geo)[1],
+             "anyhit": traversal.anyhit_plain(intersect.pack_rays(so, sdir, smask, t_max),
+                                              sd.tris.geo)}
+    total = {}
+    for name, (fn, kind) in calls.items():
+        _reset()
+        out = fn()
+        got = _launches()
+        _expect(f"[api] {name}", got, {kind: 1})
+        ms, _ = _time_ms(fn, 20)
+        same = {r: _same(out, w) for r, w in want[kind].items()}
+        if kind == "closest":
+            live = torch.ones_like(out.hit)
+            plain_eq = bool(torch.equal(out.tri_id, plain[kind]))
+            hits = out.hit.float().mean().item()
+        else:
+            live = smask
+            plain_eq = bool(torch.equal(out[live], plain[kind][live])) and not out[~live].any()
+            hits = out[live].float().mean().item()
+        log(f"[api] {name}: {out[0].shape[0] if kind == 'closest' else out.shape[0]} rays "
+            f"({int(live.sum())} live, {hits:.3f} hit), {ms:.4f} ms per call (CUDA events, 20 "
+            f"calls) ({name_limit}); launches {got}; bit-equal to the integrator's dispatch "
+            f"unsorted {same['bvh']}, sorted {same['sorted']}; equal to the plain version on "
+            f"every live lane {plain_eq}")
+        if not all(same.values()) or not plain_eq:
+            raise AssertionError(f"[api] {name} differs from the integrator's dispatch or plain")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_gate(device, out_dir: Path, name_limit) -> dict:
+    """The gate twin (mc_path_tracer_tpu_torch.tests_tpu.run) at its full
+    size: every check passes, or is skipped for an asset golden with its
+    reason; its JSON goes beside the PNGs.  Returns its launches."""
+    from mc_path_tracer_tpu_torch import tests_tpu
+
+    _reset()
+    t0 = time.perf_counter()
+    result = tests_tpu.run(device, name_limit, out_dir / "TESTS_TORCH_GPU.json")
+    got = _launches()
+    skipped = {k: result["checks"][k]["skipped"] for k in result["summary"]["skipped"]}
+    log(f"[gate] {json.dumps(result['summary'])} in {time.perf_counter() - t0:.1f} s "
+        f"({name_limit}); launches {got}; skipped: {skipped}")
+    if not result["ok"] or any(not r.startswith("asset golden") for r in skipped.values()):
+        raise AssertionError(f"[gate] failed: {result['summary']}")
+    return got
+
+
 def phase_tonemap(film, later: list, name_limit):
     """The tone-map kernel against its plain version on the bench frame's
     film: bit equality required."""
@@ -1247,11 +1350,11 @@ def phase_sort(device, name_limit) -> dict:
     from mc_path_tracer_tpu_torch.models.integrator import (
         PIXEL_CHUNK,
         RenderConfig,
-        _unsorted,
         camera_params,
         render_tile_radiance,
     )
     from mc_path_tracer_tpu_torch.ops import rng
+    from mc_path_tracer_tpu_torch.ops.intersect import _unsorted
     from mc_path_tracer_tpu_torch.ops.kernels import traversal
     from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
     from mc_path_tracer_tpu_torch.parallel.render import render_sharded
@@ -2801,6 +2904,7 @@ def main() -> int:
     phase_route_parity(sd)
     stats["tonemap"] = phase_tonemap(film, later, name_limit)
     new_paths = phase_sharded(sd, film, render_s, device, out_dir, name_limit)
+    new_paths["api"] = phase_api(sd, device, name_limit)
     del sd, film
     sd2, cam2, cfg2 = config2_scene(device)
     stats.update(phase_dense(sd2, cam2, device, later, name_limit))
@@ -2825,6 +2929,7 @@ def main() -> int:
     phase_matpreview(device, out_dir, name_limit)
     phase_cli(out_dir, name_limit)
     phase_interactive(device, name_limit)
+    new_paths["gate"] = phase_gate(device, out_dir, name_limit)
     phase_stream(device, later, name_limit)
     new_paths.update(phase_sort(device, name_limit))
     phase_device_times(later, name_limit)

@@ -32,6 +32,18 @@ from mc_path_tracer_tpu_torch.utils import native
 REF_ROOT = os.path.join(os.sep, "root", "reference")
 REF_MODELS = os.path.join(REF_ROOT, "models")
 REF_HDRI = os.path.join(REF_ROOT, "hrdi")
+# the assets each config loads where they exist (else its stand-ins)
+CONFIG_ASSETS = {
+    1: (os.path.join(REF_MODELS, "sphere.glb"),),
+    3: (os.path.join(REF_MODELS, "Suzanne.glb"),
+        os.path.join(REF_HDRI, "HDR_029_Sky_Cloudy_Env.hdr")),
+}
+
+
+def missing_assets(n: int) -> list[str]:
+    """The assets config `n` would load that are absent: its render then
+    takes the stand-ins."""
+    return [p for p in CONFIG_ASSETS.get(n, ()) if not os.path.exists(p)]
 
 
 def _maybe(path):
@@ -44,7 +56,7 @@ def config1_sphere_directional():
     s = Scene()
     s.set_environment_color((0, 0, 0), ls=0.0)
     mat = s.add_material(albedo=(0.8, 0.8, 0.8), roughness=1.0, metallic=0.0)
-    glb = _maybe(os.path.join(REF_MODELS, "sphere.glb"))
+    glb = _maybe(CONFIG_ASSETS[1][0])
     if glb:
         s.load(glb)
         for i in range(len(s.material_albedo)):
@@ -90,14 +102,14 @@ def config3_suzanne_env():
     light (a 4,096-triangle sphere and a procedural HDR without the
     assets)."""
     s = Scene()
-    glb = _maybe(os.path.join(REF_MODELS, "Suzanne.glb"))
+    glb = _maybe(CONFIG_ASSETS[3][0])
     if glb:
         s.load(glb)
     else:
         p, n, uv, idx = uv_sphere(1.0, rings=32, segments=64)
         m = s.add_material(albedo=(0.8, 0.7, 0.6), roughness=0.5)
         s.add_mesh(p, idx, normals=n, uvs=uv, material_id=m)
-    hdr = _maybe(os.path.join(REF_HDRI, "HDR_029_Sky_Cloudy_Env.hdr"))
+    hdr = _maybe(CONFIG_ASSETS[3][1])
     if hdr:
         s.set_environment_hdr(hdr)
     else:

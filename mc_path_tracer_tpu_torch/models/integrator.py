@@ -79,7 +79,13 @@ from mc_path_tracer_tpu_torch.models import lights as lights_mod
 from mc_path_tracer_tpu_torch.models.film import Film, make_film, tile_grid, tile_order
 from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import brdf, rng
-from mc_path_tracer_tpu_torch.ops.intersect import Hit, finish_closest, pack_rays
+from mc_path_tracer_tpu_torch.ops.intersect import (
+    Hit,
+    finish_closest,
+    intersect_bvh,
+    occluded_bvh,
+    pack_rays,
+)
 from mc_path_tracer_tpu_torch.ops.kernels import dense, traversal
 from mc_path_tracer_tpu_torch.ops.sampling import power_heuristic
 
@@ -164,38 +170,21 @@ def dispatch_route(num_triangles: int, device, accel: str, sort_rays: bool) -> s
     return "sorted" if route == "bvh" and sort_rays and accel in SORTED_ACCELS else route
 
 
-def _unsorted(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """x of sorted lanes back in caller order: one scatter."""
-    out = torch.empty_like(x)
-    out[perm] = x
-    return out
-
-
 def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
-    rays = pack_rays(ro, rd, mask)
-    if route == "brute":
-        _, tri_id = traversal.closest_plain(rays, scene.tris.geo)
-    elif route == "dense":
-        _, tri_id = dense.dense_closest(rays, scene.tris.geo)
-    elif route == "sorted":
-        perm = traversal.sort_perm(rd, mask)
-        _, tri_id = traversal.trace_closest(rays[perm], scene.bvh, scene.tris.geo)
-        tri_id = _unsorted(tri_id, perm)
-    else:
-        _, tri_id = traversal.trace_closest(rays, scene.bvh, scene.tris.geo)
+    if route in ("bvh", "sorted"):
+        return _detach(intersect_bvh(scene.bvh, scene.tris, ro, rd, mask=mask,
+                                     sort=route == "sorted"))
+    plain = traversal.closest_plain if route == "brute" else dense.dense_closest
+    _, tri_id = plain(pack_rays(ro, rd, mask), scene.tris.geo)
     return _detach(finish_closest(scene.tris, tri_id, ro, rd))
 
 
 def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
-    rays = pack_rays(ro, rd, mask, t_max)
-    if route == "brute":
-        return traversal.anyhit_plain(rays, scene.tris.geo)
-    if route == "dense":
-        return dense.dense_anyhit(rays, scene.tris.geo)
-    if route == "sorted":
-        perm = traversal.sort_perm(rd, mask)
-        return _unsorted(traversal.trace_anyhit(rays[perm], scene.bvh, scene.tris.geo), perm)
-    return traversal.trace_anyhit(rays, scene.bvh, scene.tris.geo)
+    if route in ("bvh", "sorted"):
+        return occluded_bvh(scene.bvh, scene.tris, ro, rd, mask=mask, t_max=t_max,
+                            sort=route == "sorted")
+    plain = traversal.anyhit_plain if route == "brute" else dense.dense_anyhit
+    return plain(pack_rays(ro, rd, mask, t_max), scene.tris.geo)
 
 
 def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,

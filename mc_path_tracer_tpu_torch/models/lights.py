@@ -30,6 +30,9 @@ from mc_path_tracer_tpu_torch.ops.math import INV_4PI, dot
 
 
 class EnvLight(NamedTuple):
+    """Environment light; its mode (envmap.COLOR_MODE or HDRI_MODE) follows
+    from the texture's shape (env_is_hdri)."""
+
     color: torch.Tensor                 # [3]
     ls: torch.Tensor                    # [] radiance scale (Color mode only)
     tex: torch.Tensor                   # [H, W, 3] HDR ([1, 1, 3] in Color mode)

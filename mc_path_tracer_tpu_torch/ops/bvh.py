@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from mc_path_tracer_tpu_torch.ops.intersect import BVHArrays, TriangleSoA
+from mc_path_tracer_tpu_torch.ops.intersect import TriangleSoA, _host, pack_bvh
+from mc_path_tracer_tpu_torch.ops.wide_bvh import WideBVH
 from mc_path_tracer_tpu_torch.utils import native
 
 log = logging.getLogger(__name__)
@@ -193,16 +194,18 @@ def collapse_wide(nb_min, nb_max, first, count, skip):
     return np.concatenate(rows), len(levels)
 
 
-def build_bvh(tris: dict[str, np.ndarray], max_leaf: int = 4,
-              method: int = native.SAH, device=DEFAULT_DEVICE):
-    """Build the threaded BVH over host triangle arrays (keys of
-    TriangleSoA, optional tan0..tan2) and reorder the triangles into leaf
-    order.  Returns (BVHArrays, TriangleSoA, builder) on `device`, with
-    builder "native" or "numpy"; the BVH carries both the binary table
-    (`packed`) and its 4-wide collapse (`wide`, `wide_depth`)."""
+def build_bvh(tris, max_leaf: int = 4, method: int = native.SAH, device=DEFAULT_DEVICE):
+    """Build the threaded BVH over host triangle arrays (a dict with the
+    keys of TriangleSoA and optional tan0..tan2, or a TriangleSoA) and
+    reorder the triangles into leaf order.  Returns (BVHArrays,
+    TriangleSoA, builder) on `device`, with builder "native" or "numpy";
+    the BVH carries both the binary table (`packed`) and its 4-wide
+    collapse (`wide`, `wide_depth`)."""
     if max_leaf > 15:
         raise ValueError("packed node meta reserves 4 bits for the leaf count")
     device = resolve_device(device)
+    if isinstance(tris, TriangleSoA):
+        tris = {k: _host(v) for k, v in tris._asdict().items() if v is not None}
     v0 = np.asarray(tris["v0"], np.float32)
     e1 = np.asarray(tris["e1"], np.float32)
     e2 = np.asarray(tris["e2"], np.float32)
@@ -239,10 +242,13 @@ def build_bvh(tris: dict[str, np.ndarray], max_leaf: int = 4,
         attrs=dev(attrs),
         geo=dev(geo.astype(np.float32)),
     )
-    wide, depth = collapse_wide(nb_min, nb_max, first, count, skip)
-    bvh = BVHArrays(
-        bmin=dev(nb_min), bmax=dev(nb_max), first=dev(first), count=dev(count),
-        skip=dev(skip), packed=dev(_packed_nodes(nb_min, nb_max, first, count, skip)),
-        wide=dev(wide), wide_depth=depth,
-    )
-    return bvh, new_tris, builder
+    return pack_bvh(nb_min, nb_max, first, count, skip, device), new_tris, builder
+
+
+def build_accel(tris, max_leaf: int = 4, method: int = native.SAH, device=DEFAULT_DEVICE):
+    """The JAX package's full accelerator build: (bvh, wide,
+    reordered_tris), where `wide` is ops/wide_bvh's WideBVH over the same
+    tree (its 4-wide table and the leaf-order geometry) rather than the
+    TPU's 16-wide row table."""
+    bvh, new_tris, _ = build_bvh(tris, max_leaf, method, device)
+    return bvh, WideBVH(bvh, new_tris.geo), new_tris

@@ -25,6 +25,10 @@ from mc_path_tracer_tpu_torch.ops.math import INV_4PI, PI, equirect_dir, equirec
 from mc_path_tracer_tpu_torch.ops.sampling import sample_uniform_sphere
 
 LUMINANCE = (0.299, 0.587, 0.114)   # Rec.601 weights (jek::luminance)
+# the environment light's two modes (models/lights.EnvLight; env_is_hdri
+# tells them apart by the texture's shape)
+COLOR_MODE = 0
+HDRI_MODE = 1
 
 
 class EnvMapDistribution(NamedTuple):

@@ -11,6 +11,10 @@ mc_path_tracer_tpu/ops/intersect.py).
 
 Traversal itself lives in ops/kernels/traversal.py: the CUDA kernel and
 its plain (brute-force) version share the packed contract below.
+`intersect_bvh` / `occluded_bvh` (the JAX package's BVH routes, which the
+integrator's traversal dispatches and ops/wide_bvh share) launch that
+kernel on CUDA tensors; the JAX package's XLA walk (`_traverse`) is not
+ported.
   rays   [R, 8] f32: o.xyz, d.xyz, live (> 0.5), t_max
   packed [N, 8] f32: bmin, bmax, bitcast(first*16 + count), bitcast(skip)
   wide   [W, 32] f32: per node the SoA boxes of 4 children and their refs
@@ -23,8 +27,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.math import (
     K_EPSILON,
     K_HUGE,
@@ -80,6 +86,35 @@ class BVHArrays(NamedTuple):
     @property
     def num_nodes(self) -> int:
         return self.bmin.shape[0]
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def pack_bvh(bmin, bmax, first, count, skip, device=None) -> BVHArrays:
+    """BVHArrays from the threaded depth-first node arrays (numpy or
+    tensors): the JAX package's [N, 8] node table and its 4-wide collapse
+    (ops/bvh.collapse_wide), which the traversal kernel walks.  Requires
+    count < 16.  On `device`: by default the inputs' device where they are
+    tensors, else the card."""
+    from mc_path_tracer_tpu_torch.ops.bvh import _packed_nodes, collapse_wide
+
+    if device is None:
+        device = bmin.device if isinstance(bmin, torch.Tensor) else DEFAULT_DEVICE
+    device = resolve_device(device)
+    nb_min, nb_max = (_host(x).astype(np.float32) for x in (bmin, bmax))
+    first, count, skip = (_host(x).astype(np.int32) for x in (first, count, skip))
+    wide, depth = collapse_wide(nb_min, nb_max, first, count, skip)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return BVHArrays(
+        bmin=dev(nb_min), bmax=dev(nb_max), first=dev(first), count=dev(count),
+        skip=dev(skip), packed=dev(_packed_nodes(nb_min, nb_max, first, count, skip)),
+        wide=dev(wide), wide_depth=depth,
+    )
 
 
 class Hit(NamedTuple):
@@ -236,3 +271,45 @@ def occluded_brute(tris: TriangleSoA, ray_o: torch.Tensor, ray_d: torch.Tensor,
     from mc_path_tracer_tpu_torch.ops.kernels.traversal import anyhit_plain
 
     return anyhit_plain(pack_rays(ray_o, ray_d, t_max=t_max), tris.geo)
+
+
+def _unsorted(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x of sorted lanes back in caller order: one scatter."""
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
+def _trace(bvh: BVHArrays, geo: torch.Tensor, ray_o, ray_d, any_hit: bool,
+           mask=None, t_max=None, sort: bool = False) -> torch.Tensor:
+    """The traversal kernel (ops/kernels/traversal) on the rays: the
+    closest hits' tri_id [R] int32, or occ [R] bool.  With `sort` the
+    kernel runs over the lanes sorted by direction octant, dead lanes last
+    (traversal.sort_perm), and the results return in caller order."""
+    from mc_path_tracer_tpu_torch.ops.kernels import traversal
+
+    rays = pack_rays(ray_o, ray_d, mask, t_max)
+    trace = traversal.trace_anyhit if any_hit else traversal.trace_closest
+    perm = traversal.sort_perm(ray_d, mask) if sort else None
+    out = trace(rays if perm is None else rays[perm], bvh, geo)
+    out = out if any_hit else out[1]
+    return out if perm is None else _unsorted(out, perm)
+
+
+def intersect_bvh(bvh: BVHArrays, tris: TriangleSoA, ray_o: torch.Tensor,
+                  ray_d: torch.Tensor, max_leaf_prims: int = 4, mask=None, *,
+                  sort: bool = False) -> Hit:
+    """Closest hit per ray through the traversal kernel, shaded
+    (finish_closest).  `max_leaf_prims` is for JAX parity only: the kernel
+    reads each leaf's own triangle count.  `sort`: octant-sorted lanes
+    (RenderConfig.sort_rays); the hits do not change."""
+    tri_id = _trace(bvh, tris.geo, ray_o, ray_d, False, mask=mask, sort=sort)
+    return finish_closest(tris, tri_id, ray_o, ray_d)
+
+
+def occluded_bvh(bvh: BVHArrays, tris: TriangleSoA, ray_o: torch.Tensor,
+                 ray_d: torch.Tensor, max_leaf_prims: int = 4, mask=None, t_max=None, *,
+                 sort: bool = False) -> torch.Tensor:
+    """Any-hit [R] bool through the traversal kernel: some triangle hit
+    with t <= t_max (unbounded when None); False on masked lanes."""
+    return _trace(bvh, tris.geo, ray_o, ray_d, True, mask=mask, t_max=t_max, sort=sort)

@@ -5,7 +5,9 @@ mc_path_tracer_tpu/utils/gltf.py).
     world space at load (positions by the accumulated matrix, normals by
     its inverse-transpose, TANGENT xyz by the matrix).
   - Triangle primitives only (mode 4); smooth normals where NORMAL is
-    absent; tangents computed from UV gradients where TANGENT is absent.
+    absent; tangents computed from UV gradients where TANGENT is absent
+    (`compute_tangents`, which lives in utils/mesh and is importable from
+    here, as in the JAX package).
   - UV v-flip.
   - PBR metallic-roughness materials with their five texture slots;
     `reference_material_quirk` overrides roughness / metallic to 1 / 0.

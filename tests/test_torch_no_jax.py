@@ -2,12 +2,12 @@
 mc_path_tracer_tpu_torch, render an 8x8 frame of a scene with an area light
 and an 8x8 frame of one with a directional light on the CPU, render the
 latter again on a 2-shard CPU mesh (parallel/mesh.py, render_sharded),
-build a procedural turtle mesh (models/procedural.py), decode
+rebuild its triangles with build_accel and trace them through
+ops/wide_bvh's routes, build a procedural turtle mesh (models/procedural.py), decode
 chip_smoke.py's embedded JPEGs (utils/jpeg.py) to PIL's hashes, run the
 command line (`python3 -m mc_path_tracer_tpu_torch`) in the path tracer and
-the preview and the benchmark's main (which refuses to run without a card),
-and check that
-no module of JAX and none of the JAX package (mc_path_tracer_tpu) was
+the preview and the benchmark's and the gate's mains (which refuse to run
+without a card), and check that no module of JAX and none of the JAX package (mc_path_tracer_tpu) was
 loaded (the GPU machine that runs the port has no JAX), nor PIL (it has no
 imaging package either).  No source of the
 port names the JAX package outside comments and docstrings, and the port
@@ -103,6 +103,23 @@ try:
     raise AssertionError("the benchmark ran without a card")
 except RuntimeError as e:
     assert "device='cpu'" in str(e), e
+# the API routes of the last slice, and the on-card gate, which refuses to
+# run without a card
+for name in ("mc_path_tracer_tpu_torch.ops.wide_bvh", "mc_path_tracer_tpu_torch.tests_tpu"):
+    assert name in sys.modules, name
+from mc_path_tracer_tpu_torch.ops import bvh, wide_bvh
+import torch
+tb, tw, tt = bvh.build_accel(s.build("cpu").tris, device="cpu")
+o = torch.tensor([[0.0, 3.0, 0.0]]).repeat(2, 1)
+d = torch.tensor([[0.0, -1.0, 0.0]]).repeat(2, 1)
+assert wide_bvh.intersect_wide(tw, tt, o, d, mask=torch.tensor([True, False])).hit.tolist() == [True, False]
+assert wide_bvh.occluded_wide(tw, o, d, t_max=torch.tensor([1.0, 5.0])).tolist() == [False, True]
+sys.argv = ["mc_path_tracer_tpu_torch.tests_tpu"]
+try:
+    runpy.run_module("mc_path_tracer_tpu_torch.tests_tpu", run_name="__main__")
+    raise AssertionError("the gate ran without a card")
+except RuntimeError as e:
+    assert "only on a GPU" in str(e), e
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", loaded)
 ref = sorted(m for m in sys.modules
