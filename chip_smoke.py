@@ -1278,8 +1278,8 @@ def phase_stream(device, later: list, name_limit):
 
 
 def _device_kernels(prof) -> int:
-    """Device kernels a torch.profiler session ran (tools/profile_torch_block's
-    count: entries with device time and no host time)."""
+    """Device kernels a torch.profiler session ran (the entries with device
+    time and no host time)."""
     return sum(e.count for e in prof.key_averages()
                if getattr(e, "self_device_time_total", 0.0) > 0 and e.cpu_time_total == 0)
 
@@ -1805,10 +1805,12 @@ def _train_step(sd, cam, width, height, px, py, cfg, target, replay=True, mesh=N
     """One make_train_step step (key 0, on `mesh` if given) with the launch
     counts set to 0 and the peak memory reset just before: {loss, grads (the
     7 tensors in GRAD_NAMES order), seconds, peak_gb, forward, backward
-    launches}."""
+    launches}; the forward's seconds and launches are its kept
+    `mcpt::train.forward` span's (utils/profiling)."""
     from mc_path_tracer_tpu_torch import make_train_step
     from mc_path_tracer_tpu_torch.models.integrator import camera_params
     from mc_path_tracer_tpu_torch.ops import rng
+    from mc_path_tracer_tpu_torch.utils.profiling import GLOBAL_TIMINGS
 
     step = make_train_step(cfg, width, height, cfg.spp, replay=replay, mesh=mesh)
     params = camera_params(cam, width, height, sd.tris.v0.device)
@@ -1820,11 +1822,12 @@ def _train_step(sd, cam, width, height, px, py, cfg, target, replay=True, mesh=N
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     total = _launches()
-    forward = {k: step.forward_launches[k] for k in total}
+    fwd = GLOBAL_TIMINGS.last("mcpt::train.forward")
+    forward = {k: fwd.launches.get(k, 0) for k in total}
     grads = [*mat, ls, tex]
     if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError("a train step gave a loss or a gradient that is not finite")
-    return dict(loss=loss.item(), grads=grads, seconds=seconds, forward_s=step.forward_seconds,
+    return dict(loss=loss.item(), grads=grads, seconds=seconds, forward_s=fwd.seconds,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, forward=forward,
                 backward={k: total[k] - forward[k] for k in total})
 

@@ -29,7 +29,8 @@ of bench_scaling.py (`devices`, `wall_ms`, `mrays_s`, `bitequal_vs_1dev`,
 `efficiency` = t_1 / (n t_n) from the measured walls, t_1 being the same
 route's one-card wall, which replaces the JAX script's modelled
 projection, and the kernel launches of each card; per step its wall,
-forward and backward (the step's forward_seconds; the rest) and the
+forward and backward (the step's kept `mcpt::train.forward` span,
+utils/profiling; the rest) and the
 largest gradient gap to the in-process one-card step, as a share of the
 largest gradient.  `comm_bytes` counts
 the film gather and the gradient all-reduce from shapes, as the JAX script
@@ -221,7 +222,15 @@ def time_step(sd, cam, pixels, frame: Frame, mesh):
     step = make_train_step(cfg, frame.width, frame.height, cfg.spp, mesh=mesh)
     (loss, (mat, ls, tex)), seconds, shards, cpu = _timed(
         lambda: step(sd, cam, *pixels, rng.prng_key(0)), mesh.devices)
-    return loss, [*mat, ls, tex], seconds, step.forward_seconds, shards, cpu
+    return loss, [*mat, ls, tex], seconds, forward_seconds(), shards, cpu
+
+
+def forward_seconds() -> float:
+    """The host seconds of the last train step's forward (its kept
+    `mcpt::train.forward` span)."""
+    from mc_path_tracer_tpu_torch.utils.profiling import GLOBAL_TIMINGS
+
+    return GLOBAL_TIMINGS.last("mcpt::train.forward").seconds
 
 
 def in_process_route(sd, cam, pixels, frame: Frame, meshes) -> tuple[list, list, dict]:
@@ -381,11 +390,11 @@ def worker(out_dir: str) -> int:
         loss, (mat, ls, tex) = timed["step"]
         print(f"rank {rank} of {world} on {mesh.devices[0]} ({dist.get_backend()}): frame "
               f"{timed['frame_s']:.3f} s, step {timed['step_s']:.3f} s (forward "
-              f"{step.forward_seconds:.3f} s), frame launches {launches}", flush=True)
+              f"{forward_seconds():.3f} s), frame launches {launches}", flush=True)
         frame_rows = timed["frame"] if rank == 0 else timed["frame"][:0]
         np.savez(out / f"rank{rank}.npz", frame=frame_rows.cpu().numpy(),
                  frame_s=timed["frame_s"], step_s=timed["step_s"],
-                 forward_s=step.forward_seconds, loss=loss.cpu().numpy(),
+                 forward_s=forward_seconds(), loss=loss.cpu().numpy(),
                  backend=dist.get_backend(), launches=json.dumps(launches),
                  frame_cpu_s=timed["frame_cpu_s"], step_cpu_s=timed["step_cpu_s"],
                  **{f"g{i}": g.cpu().numpy() for i, g in enumerate([*mat, ls, tex])})

@@ -17,6 +17,7 @@ from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops import tonemap
 from mc_path_tracer_tpu_torch.ops.kernels import tonemap as tonemap_kernel
 from mc_path_tracer_tpu_torch.utils.image import write_png
+from mc_path_tracer_tpu_torch.utils.profiling import spanned
 
 DEFAULT_TILE = 256  # progressive tile edge
 
@@ -44,6 +45,7 @@ class Film(NamedTuple):
             return tonemap.heatmap(self.ld, self.samples, exposure)
         return tonemap.reinhard(self.ld, self.samples, exposure)
 
+    @spanned("mcpt::tonemap")
     def to_uint8(self, exposure: float = 1.0, view: str = "color") -> np.ndarray:
         """The display image in 8 bits: the colour view through the tone-map
         kernel (its plain version for a film on the CPU), the heat map in

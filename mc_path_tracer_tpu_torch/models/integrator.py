@@ -62,6 +62,12 @@ traversal reached from accel "auto" or "pallas" (`dispatch_route`).  The
 packed rays are gathered once in sorted order and the winners scattered
 back to caller order; the sort is stable on integer keys, so a replayed
 sample meets the forward's hits, and per-ray results never change.
+
+The stages run in spans of utils/profiling, recorded only under a
+profiler session: `mcpt::render` (its own time: the frame's set-up),
+`mcpt::sample` per block and sample, `mcpt::camera`, `mcpt::trace`,
+`mcpt::bounce` per bounce (its own time: the shading glue),
+`mcpt::closest` / `mcpt::anyhit` per dispatch and `mcpt::film`.
 """
 
 from __future__ import annotations
@@ -88,6 +94,7 @@ from mc_path_tracer_tpu_torch.ops.intersect import (
 )
 from mc_path_tracer_tpu_torch.ops.kernels import dense, traversal
 from mc_path_tracer_tpu_torch.ops.sampling import power_heuristic
+from mc_path_tracer_tpu_torch.utils.profiling import span, spanned
 
 # reference constants (wavefront_kernels.cu)
 SHADOW_OFFSET = 0.01
@@ -170,6 +177,7 @@ def dispatch_route(num_triangles: int, device, accel: str, sort_rays: bool) -> s
     return "sorted" if route == "bvh" and sort_rays and accel in SORTED_ACCELS else route
 
 
+@spanned("mcpt::closest")
 def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
     if route in ("bvh", "sorted"):
         return _detach(intersect_bvh(scene.bvh, scene.tris, ro, rd, mask=mask,
@@ -179,6 +187,7 @@ def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
     return _detach(finish_closest(scene.tris, tri_id, ro, rd))
 
 
+@spanned("mcpt::anyhit")
 def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
     if route in ("bvh", "sorted"):
         return occluded_bvh(scene.bvh, scene.tris, ro, rd, mask=mask, t_max=t_max,
@@ -187,6 +196,7 @@ def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
     return plain(pack_rays(ro, rd, mask, t_max), scene.tris.geo)
 
 
+@spanned("mcpt::trace")
 def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
                    cfg: RenderConfig, pid=None) -> torch.Tensor:
     """Path-trace one sample for each input ray; returns radiance [R, 3].
@@ -224,208 +234,213 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
 
     # next-event estimation at hits 1..max_depth-1
     for bounce in range(1, cfg.max_depth):
-        u = rng.pixel_uniforms(rng.fold_in(key, bounce), pid, 10).detach()
-        pos = isect.position
-        mat = scene.materials.gather(isect.material_id, isect.uv, atlas)
-        n = scene.materials.perturb_normal(isect.material_id, isect.uv, atlas,
-                                           isect.normal, isect.tangent, isect.bitangent)
+        with span("mcpt::bounce"):
+            u = rng.pixel_uniforms(rng.fold_in(key, bounce), pid, 10).detach()
+            pos = isect.position
+            mat = scene.materials.gather(isect.material_id, isect.uv, atlas)
+            n = scene.materials.perturb_normal(isect.material_id, isect.uv, atlas,
+                                               isect.normal, isect.tangent, isect.bitangent)
 
-        # ---- light selection and the light-sample estimator ----
-        l_id = torch.clamp((u[:, 0] * n_lights).to(torch.int64), max=n_lights - 1)
-        wl = lights_mod.sample_dir(lights, l_id, u[:, 1:3],
-                                   env_importance=cfg.env_importance).detach()
-        delta = lights_mod.is_delta(lights, l_id)
-        li_light = lights_mod.radiance(lights, l_id, wl)
-        pdf_light = lights_mod.pdf(lights, l_id, wl,
-                                   env_importance=cfg.env_importance).detach()
-        shadow_tmax = None
-        if aid >= 0:
-            # the area sample reads u[:, 1:4]: its third uniform is u[:, 3],
-            # which also picks the two-sample BRDF lobe below, as in the JAX
-            # package (a correlation of two unbiased estimators, kept for
-            # pixel parity)
-            is_area = l_id == aid
-            wl_a, dist_a, li_a, pdf_a = lights_mod.sample_area(
-                lights.area, scene.tris, pos, u[:, 1:4])
-            wl_a, dist_a, pdf_a = wl_a.detach(), dist_a.detach(), pdf_a.detach()
-            wl = torch.where(is_area[..., None], wl_a, wl)
-            li_light = torch.where(is_area[..., None], li_a, li_light)
-            pdf_light = torch.where(is_area, pdf_a, pdf_light)
-            # bounded shadow ray: blockers strictly between surface and
-            # light; the 2 * SHADOW_OFFSET margin covers the origin's offset
-            # so the emitter never occludes itself
-            shadow_tmax = torch.where(
-                is_area, dist_a * (1.0 - 1e-3) - 2.0 * SHADOW_OFFSET,
-                torch.full_like(dist_a, 1e32))
-        shadow_o = pos + n * SHADOW_OFFSET
-        f_light = brdf.mixture_f(mat, n, wl, wo)
-        pdf_brdf_at_wl = torch.where(
-            delta, 1.0, brdf.mixture_pdf(mat, n, wl, wo)).detach()
-        # lanes whose light sample contributes nothing skip the shadow ray
-        sh_mask = alive if quirks else (
-            alive & (pdf_light > 0.0) & (f_light.detach() != 0.0).any(dim=-1)
-        )
-
-        # ---- brdf-sample estimator, non-delta lights ----
-        # reuse: the continuation sample ws is the BRDF sample, traced from
-        # the extension origin; its hit becomes the next isect unless this
-        # is the last NEE bounce
-        last = bounce == cfg.max_depth - 1
-        shared = reuse and not last
-        isect_next = None
-        if reuse:
-            wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
-            vis_o = pos + n * EXT_OFFSET
-        else:
-            wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 3], u[:, 4:6]).detach()
-            vis_o = pos + wb * VIS_OFFSET
-        f_at_wb = brdf.mixture_f(mat, n, wb, wo)
-        pdf_at_wb = brdf.mixture_pdf(mat, n, wb, wo).detach()
-        if shared:
-            # continuation throughput and Russian roulette before the shared
-            # trace: killed lanes skip it, survivors carry 1 / (1 - q)
-            cont_ok = (pdf_at_wb > 0.0) & (f_at_wb.detach() != 0.0).any(dim=-1)
-            beta_next = torch.where(
-                alive[..., None],
-                beta * f_at_wb / torch.clamp(pdf_at_wb, min=1e-20)[..., None],
-                beta,
+            # ---- light selection and the light-sample estimator ----
+            l_id = torch.clamp((u[:, 0] * n_lights).to(torch.int64), max=n_lights - 1)
+            wl = lights_mod.sample_dir(lights, l_id, u[:, 1:3],
+                                       env_importance=cfg.env_importance).detach()
+            delta = lights_mod.is_delta(lights, l_id)
+            li_light = lights_mod.radiance(lights, l_id, wl)
+            pdf_light = lights_mod.pdf(lights, l_id, wl,
+                                       env_importance=cfg.env_importance).detach()
+            shadow_tmax = None
+            if aid >= 0:
+                # the area sample reads u[:, 1:4]: its third uniform is u[:, 3],
+                # which also picks the two-sample BRDF lobe below, as in the JAX
+                # package (a correlation of two unbiased estimators, kept for
+                # pixel parity)
+                is_area = l_id == aid
+                wl_a, dist_a, li_a, pdf_a = lights_mod.sample_area(
+                    lights.area, scene.tris, pos, u[:, 1:4])
+                wl_a, dist_a, pdf_a = wl_a.detach(), dist_a.detach(), pdf_a.detach()
+                wl = torch.where(is_area[..., None], wl_a, wl)
+                li_light = torch.where(is_area[..., None], li_a, li_light)
+                pdf_light = torch.where(is_area, pdf_a, pdf_light)
+                # bounded shadow ray: blockers strictly between surface and
+                # light; the 2 * SHADOW_OFFSET margin covers the origin's offset
+                # so the emitter never occludes itself
+                shadow_tmax = torch.where(
+                    is_area, dist_a * (1.0 - 1e-3) - 2.0 * SHADOW_OFFSET,
+                    torch.full_like(dist_a, 1e32))
+            shadow_o = pos + n * SHADOW_OFFSET
+            f_light = brdf.mixture_f(mat, n, wl, wo)
+            pdf_brdf_at_wl = torch.where(
+                delta, 1.0, brdf.mixture_pdf(mat, n, wl, wo)).detach()
+            # lanes whose light sample contributes nothing skip the shadow ray
+            sh_mask = alive if quirks else (
+                alive & (pdf_light > 0.0) & (f_light.detach() != 0.0).any(dim=-1)
             )
-            surv = alive & cont_ok
-            if bounce >= cfg.rr_start:
-                q = torch.clamp(1.0 - beta_next[:, 1].detach(), min=RR_MIN_Q)
-                surv = surv & ~(u[:, 9] < q)
-                beta_next = beta_next / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
-            ext_mask = surv
-        else:
-            surv = alive
-            ext_mask = alive & ~delta
-        if aid >= 0:
-            # the bounded shadow any-hit, then the BRDF ray's closest hit:
-            # did it reach the emitter?  (Env visibility is its miss.)
-            visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask,
-                                 t_max=shadow_tmax) & alive
-            hit_b = _intersect(scene, route, vis_o, wb, mask=ext_mask)
+
+            # ---- brdf-sample estimator, non-delta lights ----
+            # reuse: the continuation sample ws is the BRDF sample, traced from
+            # the extension origin; its hit becomes the next isect unless this
+            # is the last NEE bounce
+            last = bounce == cfg.max_depth - 1
+            shared = reuse and not last
+            isect_next = None
+            if reuse:
+                wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
+                vis_o = pos + n * EXT_OFFSET
+            else:
+                wb = brdf.mixture_sample_wi(mat, n, wo, u[:, 3], u[:, 4:6]).detach()
+                vis_o = pos + wb * VIS_OFFSET
+            f_at_wb = brdf.mixture_f(mat, n, wb, wo)
+            pdf_at_wb = brdf.mixture_pdf(mat, n, wb, wo).detach()
             if shared:
-                isect_next = hit_b
-            li_hit, pdf_sa_hit, on_light = lights_mod.area_eval_hit(
-                lights.area, scene.tris, hit_b, vis_o)
-            vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & surv
-            li_brdf_raw = torch.where(
-                is_area[..., None], li_hit, lights_mod.radiance(lights, l_id, wb))
-            pdf_l_at_wb_raw = torch.where(
-                is_area, pdf_sa_hit.detach(),
-                lights_mod.pdf(lights, l_id, wb, env_importance=cfg.env_importance))
-        elif shared:
-            # the R-lane shadow any-hit; the extension's closest hit doubles
-            # as the visibility query (a miss sees the environment along wb)
-            visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask) & alive
-            isect_next = _intersect(scene, route, vis_o, wb, mask=ext_mask)
-            vis2 = ~isect_next.hit & ~delta & surv
-            li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
-            pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
-                                             env_importance=cfg.env_importance)
-        else:
-            # one fused any-hit dispatch for the shadow and visibility rays
-            occ2 = _occluded(
-                scene, route,
-                torch.cat([shadow_o, vis_o], dim=0),
-                torch.cat([wl, wb], dim=0),
-                mask=torch.cat([sh_mask, alive & ~delta], dim=0),
-            )
-            visible = ~occ2[:num_rays] & alive
-            vis2 = ~occ2[num_rays:] & ~delta & alive
-            li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
-            pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
-                                             env_importance=cfg.env_importance)
-        f_brdf = torch.where(vis2[..., None], f_at_wb, 0.0)
-        li_brdf = torch.where(vis2[..., None], li_brdf_raw, 0.0)
-        pdf_brdf = torch.where(vis2, pdf_at_wb, 1.0).detach()
-        pdf_light_at_wb = torch.where(vis2, pdf_l_at_wb_raw, 1.0).detach()
+                # continuation throughput and Russian roulette before the shared
+                # trace: killed lanes skip it, survivors carry 1 / (1 - q)
+                cont_ok = (pdf_at_wb > 0.0) & (f_at_wb.detach() != 0.0).any(dim=-1)
+                beta_next = torch.where(
+                    alive[..., None],
+                    beta * f_at_wb / torch.clamp(pdf_at_wb, min=1e-20)[..., None],
+                    beta,
+                )
+                surv = alive & cont_ok
+                if bounce >= cfg.rr_start:
+                    q = torch.clamp(1.0 - beta_next[:, 1].detach(), min=RR_MIN_Q)
+                    surv = surv & ~(u[:, 9] < q)
+                    beta_next = beta_next / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
+                ext_mask = surv
+            else:
+                surv = alive
+                ext_mask = alive & ~delta
+            if aid >= 0:
+                # the bounded shadow any-hit, then the BRDF ray's closest hit:
+                # did it reach the emitter?  (Env visibility is its miss.)
+                visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask,
+                                     t_max=shadow_tmax) & alive
+                hit_b = _intersect(scene, route, vis_o, wb, mask=ext_mask)
+                if shared:
+                    isect_next = hit_b
+                li_hit, pdf_sa_hit, on_light = lights_mod.area_eval_hit(
+                    lights.area, scene.tris, hit_b, vis_o)
+                vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & surv
+                li_brdf_raw = torch.where(
+                    is_area[..., None], li_hit, lights_mod.radiance(lights, l_id, wb))
+                pdf_l_at_wb_raw = torch.where(
+                    is_area, pdf_sa_hit.detach(),
+                    lights_mod.pdf(lights, l_id, wb, env_importance=cfg.env_importance))
+            elif shared:
+                # the R-lane shadow any-hit; the extension's closest hit doubles
+                # as the visibility query (a miss sees the environment along wb)
+                visible = ~_occluded(scene, route, shadow_o, wl, mask=sh_mask) & alive
+                isect_next = _intersect(scene, route, vis_o, wb, mask=ext_mask)
+                vis2 = ~isect_next.hit & ~delta & surv
+                li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
+                pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
+                                                 env_importance=cfg.env_importance)
+            else:
+                # one fused any-hit dispatch for the shadow and visibility rays
+                occ2 = _occluded(
+                    scene, route,
+                    torch.cat([shadow_o, vis_o], dim=0),
+                    torch.cat([wl, wb], dim=0),
+                    mask=torch.cat([sh_mask, alive & ~delta], dim=0),
+                )
+                visible = ~occ2[:num_rays] & alive
+                vis2 = ~occ2[num_rays:] & ~delta & alive
+                li_brdf_raw = lights_mod.radiance(lights, l_id, wb)
+                pdf_l_at_wb_raw = lights_mod.pdf(lights, l_id, wb,
+                                                 env_importance=cfg.env_importance)
+            f_brdf = torch.where(vis2[..., None], f_at_wb, 0.0)
+            li_brdf = torch.where(vis2[..., None], li_brdf_raw, 0.0)
+            pdf_brdf = torch.where(vis2, pdf_at_wb, 1.0).detach()
+            pdf_light_at_wb = torch.where(vis2, pdf_l_at_wb_raw, 1.0).detach()
 
-        # ---- MIS combine ----
-        w1 = power_heuristic(1, pdf_light, 1, pdf_brdf_at_wl).detach()
-        if not quirks:
-            w1 = torch.where(delta, 1.0, w1)
-        w2 = power_heuristic(1, pdf_brdf, 1, pdf_light_at_wb).detach()
-        if cfg.mis_mode == "light":
-            w1, w2 = torch.ones_like(w1), torch.zeros_like(w2)
-        elif cfg.mis_mode == "brdf":
-            w1, w2 = torch.zeros_like(w1), torch.ones_like(w2)
-        ld = torch.where(
-            (visible & (pdf_light > 0.0) & (w1 > 0.0))[..., None],
-            f_light * li_light * (w1 / torch.clamp(pdf_light, min=1e-20))[..., None],
-            0.0,
-        )
-        ld_brdf = None
-        if shared:
-            # beta_next already carries f / pdf and the RR reweight; vis2
-            # implies survival and pdf > 0
-            ld_brdf = torch.where((vis2 & (w2 > 0.0))[..., None],
-                                  beta_next * li_brdf * w2[..., None], 0.0)
-        else:
-            ld = ld + torch.where(
-                (vis2 & (pdf_brdf > 0.0) & (w2 > 0.0))[..., None],
-                f_brdf * li_brdf * (w2 / torch.clamp(pdf_brdf, min=1e-20))[..., None],
+            # ---- MIS combine ----
+            w1 = power_heuristic(1, pdf_light, 1, pdf_brdf_at_wl).detach()
+            if not quirks:
+                w1 = torch.where(delta, 1.0, w1)
+            w2 = power_heuristic(1, pdf_brdf, 1, pdf_light_at_wb).detach()
+            if cfg.mis_mode == "light":
+                w1, w2 = torch.ones_like(w1), torch.zeros_like(w2)
+            elif cfg.mis_mode == "brdf":
+                w1, w2 = torch.zeros_like(w1), torch.ones_like(w2)
+            ld = torch.where(
+                (visible & (pdf_light > 0.0) & (w1 > 0.0))[..., None],
+                f_light * li_light * (w1 / torch.clamp(pdf_light, min=1e-20))[..., None],
                 0.0,
             )
-        if not quirks:
-            ld = ld * float(n_lights)  # uniform-selection compensation
-            if ld_brdf is not None:
-                ld_brdf = ld_brdf * float(n_lights)
-        l_out = l_out + torch.where(alive[..., None], beta * ld, 0.0)
-        if ld_brdf is not None:
-            l_out = l_out + ld_brdf
-
-        # ---- path continuation sample ----
-        if shared:
-            ws, beta, alive = wb, beta_next, surv
-        else:
-            if reuse:
-                ws, pdf_s, f_s = wb, pdf_at_wb, f_at_wb
+            ld_brdf = None
+            if shared:
+                # beta_next already carries f / pdf and the RR reweight; vis2
+                # implies survival and pdf > 0
+                ld_brdf = torch.where((vis2 & (w2 > 0.0))[..., None],
+                                      beta_next * li_brdf * w2[..., None], 0.0)
             else:
-                ws = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
-                pdf_s = brdf.mixture_pdf(mat, n, ws, wo).detach()
-                f_s = brdf.mixture_f(mat, n, ws, wo)
-            cont_ok = (pdf_s > 0.0) & (f_s.detach() != 0.0).any(dim=-1)
-            beta = torch.where(
-                alive[..., None],
-                beta * f_s / torch.clamp(pdf_s, min=1e-20)[..., None],
-                beta,
-            )
-            alive = alive & cont_ok
+                ld = ld + torch.where(
+                    (vis2 & (pdf_brdf > 0.0) & (w2 > 0.0))[..., None],
+                    f_brdf * li_brdf * (w2 / torch.clamp(pdf_brdf, min=1e-20))[..., None],
+                    0.0,
+                )
+            if not quirks:
+                ld = ld * float(n_lights)  # uniform-selection compensation
+                if ld_brdf is not None:
+                    ld_brdf = ld_brdf * float(n_lights)
+            l_out = l_out + torch.where(alive[..., None], beta * ld, 0.0)
+            if ld_brdf is not None:
+                l_out = l_out + ld_brdf
 
-            # ---- Russian roulette ----
-            if bounce >= cfg.rr_start:
-                q = torch.clamp(1.0 - beta[:, 1].detach(), min=RR_MIN_Q)
-                alive = alive & ~(u[:, 9] < q)
-                if not quirks:
-                    beta = beta / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
+            # ---- path continuation sample ----
+            if shared:
+                ws, beta, alive = wb, beta_next, surv
+            else:
+                if reuse:
+                    ws, pdf_s, f_s = wb, pdf_at_wb, f_at_wb
+                else:
+                    ws = brdf.mixture_sample_wi(mat, n, wo, u[:, 6], u[:, 7:9]).detach()
+                    pdf_s = brdf.mixture_pdf(mat, n, ws, wo).detach()
+                    f_s = brdf.mixture_f(mat, n, ws, wo)
+                cont_ok = (pdf_s > 0.0) & (f_s.detach() != 0.0).any(dim=-1)
+                beta = torch.where(
+                    alive[..., None],
+                    beta * f_s / torch.clamp(pdf_s, min=1e-20)[..., None],
+                    beta,
+                )
+                alive = alive & cont_ok
 
-        # ---- extension, only if another NEE bounce follows ----
-        if not last:
-            ray_d = ws
-            wo = -ray_d
-            if isect_next is None:
-                isect_next = _intersect(scene, route, pos + n * EXT_OFFSET, ray_d, mask=alive)
-            isect = isect_next
-            alive = alive & isect.hit
+                # ---- Russian roulette ----
+                if bounce >= cfg.rr_start:
+                    q = torch.clamp(1.0 - beta[:, 1].detach(), min=RR_MIN_Q)
+                    alive = alive & ~(u[:, 9] < q)
+                    if not quirks:
+                        beta = beta / torch.clamp(1.0 - q.detach(), min=RR_MIN_Q)[..., None]
+
+            # ---- extension, only if another NEE bounce follows ----
+            if not last:
+                ray_d = ws
+                wo = -ray_d
+                if isect_next is None:
+                    isect_next = _intersect(scene, route, pos + n * EXT_OFFSET, ray_d, mask=alive)
+                isect = isect_next
+                alive = alive & isect.hit
 
     return l_out
 
 
-def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx):
-    """One sample for pixels (px, py); all randomness keyed by pixel id."""
-    skey = rng.fold_in(key, sample_idx)
-    pid = (py * width + px).to(torch.int32)
-    if cfg.jitter:
-        uj = rng.pixel_uniforms(rng.fold_in(skey, 1_000_003), pid, 2)
-        pxj = px + uj[..., 0] - 0.5
-        pyj = py + uj[..., 1] - 0.5
-    else:
-        pxj, pyj = px, py
-    lens_u = rng.pixel_uniforms(rng.fold_in(skey, 1_000_007), pid, 2)
-    ro, rd = camera_mod.gen_camera_rays(camera, width, height, pxj, pyj, lens_u)
-    return trace_radiance(scene, ro, rd, skey, cfg, pid=pid)
+def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx, block=0):
+    """One sample for pixels (px, py); all randomness keyed by pixel id.
+    `block` (the block's index in its render_tile_radiance call) only names
+    the sample's span."""
+    with span("mcpt::sample", ident=(block, sample_idx)):
+        skey = rng.fold_in(key, sample_idx)
+        pid = (py * width + px).to(torch.int32)
+        with span("mcpt::camera"):
+            if cfg.jitter:
+                uj = rng.pixel_uniforms(rng.fold_in(skey, 1_000_003), pid, 2)
+                pxj = px + uj[..., 0] - 0.5
+                pyj = py + uj[..., 1] - 0.5
+            else:
+                pxj, pyj = px, py
+            lens_u = rng.pixel_uniforms(rng.fold_in(skey, 1_000_007), pid, 2)
+            ro, rd = camera_mod.gen_camera_rays(camera, width, height, pxj, pyj, lens_u)
+        return trace_radiance(scene, ro, rd, skey, cfg, pid=pid)
 
 
 def _requires_grad(*trees) -> bool:
@@ -459,11 +474,11 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     r = px.shape[0]
     cuts = sorted({0, *range(-first % PIXEL_CHUNK, r, PIXEL_CHUNK)}) + [r]
     blocks = []
-    for s0, s1 in zip(cuts[:-1], cuts[1:]):
+    for b, (s0, s1) in enumerate(zip(cuts[:-1], cuts[1:])):
         px_c, py_c = px[s0:s1], py[s0:s1]
         acc = torch.zeros((px_c.shape[0], 3), dtype=torch.float32, device=px.device)
         for s in range(spp):
-            args = (scene, cfg, camera, width, height, px_c, py_c, key, s)
+            args = (scene, cfg, camera, width, height, px_c, py_c, key, s, b)
             if replay:
                 sample = checkpoint(_sample_pass, *args, use_reentrant=False,
                                     preserve_rng_state=False)
@@ -491,6 +506,7 @@ def camera_params(camera, width: int, height: int, device=DEFAULT_DEVICE):
     return dataclasses.replace(camera, aspect=width / height).params(device)
 
 
+@spanned("mcpt::render")
 def render(scene, camera, width: int, height: int,
            cfg: RenderConfig = RenderConfig(), key: torch.Tensor | None = None,
            device=DEFAULT_DEVICE) -> Film:
@@ -507,10 +523,12 @@ def render(scene, camera, width: int, height: int,
     px = torch.from_numpy(pxi.astype(np.float32)).to(device)
     py = torch.from_numpy(pyi.astype(np.float32)).to(device)
     acc = render_tile_radiance(scene_data, cam, width, height, px, py, key, cfg)
-    img = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
-    img[torch.from_numpy(pyi).long().to(device), torch.from_numpy(pxi).long().to(device)] = acc
-    return Film(ld=img, samples=torch.full((height, width), float(cfg.spp),
-                                           dtype=torch.float32, device=device))
+    with span("mcpt::film"):
+        img = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+        img[torch.from_numpy(pyi).long().to(device),
+            torch.from_numpy(pxi).long().to(device)] = acc
+        return Film(ld=img, samples=torch.full((height, width), float(cfg.spp),
+                                               dtype=torch.float32, device=device))
 
 
 def _tile_pass(scene: SceneData, cam, x0: int, y0: int, key: torch.Tensor, tw: int,

@@ -50,6 +50,7 @@ from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import brdf, envmap, rng
 from mc_path_tracer_tpu_torch.ops.intersect import winner_uvt
 from mc_path_tracer_tpu_torch.ops.math import PI, equirect_dir
+from mc_path_tracer_tpu_torch.utils.profiling import span, spanned
 
 PREVIEW_MODES = (
     "shaded",
@@ -174,6 +175,7 @@ def _rgb(values, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=like.device)
 
 
+@spanned("mcpt::preview.chunk")
 def _preview_chunk(scene: SceneData, route: str, ro, rd, mode: str) -> torch.Tensor:
     """One chunk of the preview, [R, 3]; for "depth" the unnormalised t of
     hit lanes (0 on misses) in every channel."""
@@ -232,10 +234,12 @@ def _preview_chunk(scene: SceneData, route: str, ro, rd, mode: str) -> torch.Ten
     refl = 2.0 * n_dot_v[..., None] * n - wo
     refl = refl / torch.clamp(torch.sqrt(torch.sum(refl * refl, dim=-1, keepdim=True)),
                               min=1e-8)
-    pre = _prefiltered_spec(lights.env, refl, mat.roughness)
+    with span("mcpt::preview.ibl"):
+        pre = _prefiltered_spec(lights.env, refl, mat.roughness)
+        irradiance = _irradiance(lights.env, n)
     ab_a, ab_b = _env_brdf_ab(n_dot_v, mat.roughness)
     spec = pre * (f0 * ab_a[..., None] + ab_b[..., None])
-    ambient = (k_d * _irradiance(lights.env, n) * mat.albedo + spec) * ao[..., None]
+    ambient = (k_d * irradiance * mat.albedo + spec) * ao[..., None]
     if lights_mod.env_is_hdri(lights.env):
         bg = envmap.radiance(lights.env.tex, rd)
     else:
@@ -244,6 +248,7 @@ def _preview_chunk(scene: SceneData, route: str, ro, rd, mode: str) -> torch.Ten
     return torch.where(hmask, direct + ambient + emissive, bg)
 
 
+@spanned("mcpt::preview.chunk")
 def _debug_chunk(scene: SceneData, route: str, ro, rd, pid) -> torch.Tensor:
     """One chunk of the debug view, [R, 3]."""
     hit = _intersect(scene, route, ro, rd)
@@ -300,6 +305,7 @@ def preview_pixels(scene: SceneData, cam, width: int, height: int, px, py, mode:
     return out
 
 
+@spanned("mcpt::preview")
 def _frame(scene, camera, width: int, height: int, mode: str, device) -> Film:
     """The whole frame in row-major pixel order."""
     scene_data, device = built_scene(scene, device)

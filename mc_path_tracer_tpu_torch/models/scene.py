@@ -37,6 +37,7 @@ from mc_path_tracer_tpu_torch.utils import native
 from mc_path_tracer_tpu_torch.utils.gltf import load_gltf
 from mc_path_tracer_tpu_torch.utils.image import load_hdr
 from mc_path_tracer_tpu_torch.utils.mesh import compute_tangents, smooth_normals
+from mc_path_tracer_tpu_torch.utils.profiling import span
 from mc_path_tracer_tpu_torch.utils.texture import TextureAtlas, build_atlas, empty_atlas
 
 
@@ -345,44 +346,48 @@ class Scene:
             raise ValueError("Scene has no geometry")
         if not self.material_albedo:
             self.add_material()
-        bvh, tris, builder = build_bvh(
-            concat_soa([o.bake() for o in self.objects])._asdict(),
-            max_leaf=self.max_leaf, method=self.bvh_method, device=device,
-        )
-        self.builder = builder
-        materials = make_material_table(
-            np.stack(self.material_albedo),
-            np.asarray(self.material_roughness, np.float32),
-            np.asarray(self.material_metallic, np.float32),
-            fresnel=np.stack(self.material_fresnel),
-            emissive=np.stack(self.material_emissive),
-            device=device,
-            albedo_tex=np.asarray(self.material_albedo_tex, np.int32),
-            mr_tex=np.asarray(self.material_mr_tex, np.int32),
-            emissive_tex=np.asarray(self.material_emissive_tex, np.int32),
-            normal_tex=np.asarray(self.material_normal_tex, np.int32),
-            ao_tex=np.asarray(self.material_ao_tex, np.int32),
-        )
-        if self.env_tex is not None:
-            env = lights_mod.make_env_hdri(self.env_tex, self.env_ls, device)
-        else:
-            env = lights_mod.make_env_color(self.env_color, self.env_ls, device)
-        if self.directional:
-            dl = lights_mod.make_directional(
-                np.stack([d for d, _, _ in self.directional]),
-                np.stack([c for _, c, _ in self.directional]),
-                np.asarray([s for _, _, s in self.directional], np.float32),
-                device,
+        with span("mcpt::scene.build", keep=True):
+            bvh, tris, builder = build_bvh(
+                concat_soa([o.bake() for o in self.objects])._asdict(),
+                max_leaf=self.max_leaf, method=self.bvh_method, device=device,
             )
-        else:
-            dl = lights_mod.empty_directional(device)
-        # emissive triangles -> the area light, indexed in leaf order
-        tri_emission = np.stack(self.material_emissive)[tris.material_id.cpu().numpy()]
-        area = lights_mod.make_area_lights(
-            tris, tri_emission.sum(axis=-1) > 0.0, tri_emission, device)
+            self.builder = builder
+            with span("mcpt::scene.env", keep=True):
+                if self.env_tex is not None:
+                    env = lights_mod.make_env_hdri(self.env_tex, self.env_ls, device)
+                else:
+                    env = lights_mod.make_env_color(self.env_color, self.env_ls, device)
+            with span("mcpt::scene.upload", keep=True):
+                materials = make_material_table(
+                    np.stack(self.material_albedo),
+                    np.asarray(self.material_roughness, np.float32),
+                    np.asarray(self.material_metallic, np.float32),
+                    fresnel=np.stack(self.material_fresnel),
+                    emissive=np.stack(self.material_emissive),
+                    device=device,
+                    albedo_tex=np.asarray(self.material_albedo_tex, np.int32),
+                    mr_tex=np.asarray(self.material_mr_tex, np.int32),
+                    emissive_tex=np.asarray(self.material_emissive_tex, np.int32),
+                    normal_tex=np.asarray(self.material_normal_tex, np.int32),
+                    ao_tex=np.asarray(self.material_ao_tex, np.int32),
+                )
+                if self.directional:
+                    dl = lights_mod.make_directional(
+                        np.stack([d for d, _, _ in self.directional]),
+                        np.stack([c for _, c, _ in self.directional]),
+                        np.asarray([s for _, _, s in self.directional], np.float32),
+                        device,
+                    )
+                else:
+                    dl = lights_mod.empty_directional(device)
+                # emissive triangles -> the area light, indexed in leaf order
+                tri_emission = np.stack(self.material_emissive)[tris.material_id.cpu().numpy()]
+                area = lights_mod.make_area_lights(
+                    tris, tri_emission.sum(axis=-1) > 0.0, tri_emission, device)
+                atlas = build_atlas(self.textures, device)
         data = SceneData(tris=tris, bvh=bvh, materials=materials,
                          lights=lights_mod.LightSet(env=env, directional=dl, area=area),
-                         atlas=build_atlas(self.textures, device))
+                         atlas=atlas)
         self._build_cache = (self.edit_version, device, data)
         return data
 

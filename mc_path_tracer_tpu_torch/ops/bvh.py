@@ -20,6 +20,7 @@ from mc_path_tracer_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from mc_path_tracer_tpu_torch.ops.intersect import TriangleSoA, _host, pack_bvh
 from mc_path_tracer_tpu_torch.ops.wide_bvh import WideBVH
 from mc_path_tracer_tpu_torch.utils import native
+from mc_path_tracer_tpu_torch.utils.profiling import span, spanned
 
 log = logging.getLogger(__name__)
 
@@ -121,6 +122,7 @@ def _pad_boxes(lo: np.ndarray, hi: np.ndarray, pad: np.float32):
     return lo_p, hi_p
 
 
+@spanned("mcpt::scene.collapse", keep=True)
 def collapse_wide(nb_min, nb_max, first, count, skip):
     """Collapse the binary threaded tree into 4-wide nodes; returns the
     [W, 32] f32 table and the tree's depth (wide nodes on the longest
@@ -210,15 +212,16 @@ def build_bvh(tris, max_leaf: int = 4, method: int = native.SAH, device=DEFAULT_
     e1 = np.asarray(tris["e1"], np.float32)
     e2 = np.asarray(tris["e2"], np.float32)
     bmin, bmax = triangle_bounds(v0, e1, e2)
-    result = native.bvh_build_native(bmin, bmax, max_leaf=max_leaf, method=method)
-    builder = "native"
-    if result is None:
-        # kept for parity with the JAX package, which falls back the same way
-        log.warning("native BVH builder unavailable (%s did not build or load): "
-                    "%d triangles go to the numpy median builder, whatever `method`",
-                    native.library_path().name, v0.shape[0])
-        result = _numpy_build(bmin, bmax, max_leaf)
-        builder = "numpy"
+    with span("mcpt::scene.bvh", keep=True):
+        result = native.bvh_build_native(bmin, bmax, max_leaf=max_leaf, method=method)
+        builder = "native"
+        if result is None:
+            # kept for parity with the JAX package, which falls back the same way
+            log.warning("native BVH builder unavailable (%s did not build or load): "
+                        "%d triangles go to the numpy median builder, whatever `method`",
+                        native.library_path().name, v0.shape[0])
+            result = _numpy_build(bmin, bmax, max_leaf)
+            builder = "numpy"
     log.info("BVH over %d triangles built by the %s builder (method %d, max_leaf %d)",
              v0.shape[0], builder, method, max_leaf)
     nb_min, nb_max, first, count, skip, order = result
@@ -237,11 +240,12 @@ def build_bvh(tris, max_leaf: int = 4, method: int = native.SAH, device=DEFAULT_
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    new_tris = TriangleSoA(
-        **{k: dev(v) for k, v in cols.items()},
-        attrs=dev(attrs),
-        geo=dev(geo.astype(np.float32)),
-    )
+    with span("mcpt::scene.upload", keep=True):
+        new_tris = TriangleSoA(
+            **{k: dev(v) for k, v in cols.items()},
+            attrs=dev(attrs),
+            geo=dev(geo.astype(np.float32)),
+        )
     return pack_bvh(nb_min, nb_max, first, count, skip, device), new_tris, builder
 
 

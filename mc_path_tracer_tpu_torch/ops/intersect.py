@@ -39,6 +39,7 @@ from mc_path_tracer_tpu_torch.ops.math import (
     dot,
     normalize,
 )
+from mc_path_tracer_tpu_torch.utils.profiling import span, spanned
 
 
 class TriangleSoA(NamedTuple):
@@ -106,15 +107,16 @@ def pack_bvh(bmin, bmax, first, count, skip, device=None) -> BVHArrays:
     nb_min, nb_max = (_host(x).astype(np.float32) for x in (bmin, bmax))
     first, count, skip = (_host(x).astype(np.int32) for x in (first, count, skip))
     wide, depth = collapse_wide(nb_min, nb_max, first, count, skip)
+    packed = _packed_nodes(nb_min, nb_max, first, count, skip)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return BVHArrays(
-        bmin=dev(nb_min), bmax=dev(nb_max), first=dev(first), count=dev(count),
-        skip=dev(skip), packed=dev(_packed_nodes(nb_min, nb_max, first, count, skip)),
-        wide=dev(wide), wide_depth=depth,
-    )
+    with span("mcpt::scene.upload", keep=True):
+        return BVHArrays(
+            bmin=dev(nb_min), bmax=dev(nb_max), first=dev(first), count=dev(count),
+            skip=dev(skip), packed=dev(packed), wide=dev(wide), wide_depth=depth,
+        )
 
 
 class Hit(NamedTuple):
@@ -239,6 +241,7 @@ def pack_rays(ray_o, ray_d, mask=None, t_max=None) -> torch.Tensor:
     return torch.cat([ray_o, ray_d, live[:, None], tm[:, None]], dim=1).to(torch.float32)
 
 
+@spanned("mcpt::finish_closest")
 def finish_closest(tris: TriangleSoA, tri_id, ray_o, ray_d) -> Hit:
     """Hit record from a traversal's winning tri_id: recompute the winner's
     exact (u, v, t), sanitize misses to u = v = 0 and t = K_HUGE (dead-lane

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from mc_path_tracer_tpu_torch.utils.profiling import span
+
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -89,8 +91,19 @@ def load_all(names) -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:
     per process.  The missing libraries build in parallel: one nvcc per
     source, all started together; each builds to a private name and is
     then renamed, so concurrent builders never load a half-written
-    library."""
+    library.  A call that loads anything runs inside the kept span
+    `mcpt::kernels.load` (utils/profiling), whose ident holds each loaded
+    library's (name, nvcc seconds): 0 where its hash was already built."""
     todo = [n for n in dict.fromkeys(names) if n not in _LOADED]
+    if todo:
+        with span("mcpt::kernels.load", keep=True) as sp:
+            _build_and_load(todo)
+            sp.ident = tuple((name, _LOADED[name][1].seconds) for name in todo)
+    return {name: _LOADED[name] for name in names}
+
+
+def _build_and_load(todo: list[str]) -> None:
+    """load_all's work for the libraries not loaded yet."""
     jobs = []
     try:
         for name in todo:
@@ -131,7 +144,6 @@ def load_all(names) -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:
                 os.unlink(tmp)
     for name, (out, seconds, log) in built.items():
         _LOADED[name] = (ctypes.CDLL(str(out)), BuildInfo(out, seconds, log))
-    return {name: _LOADED[name] for name in names}
 
 
 def load(name: str) -> tuple[ctypes.CDLL, BuildInfo]:

@@ -36,6 +36,7 @@ from mc_path_tracer_tpu_torch.ops import intersect
 from mc_path_tracer_tpu_torch.ops.bvh import EMPTY_REF, WIDE, WIDE_ROW
 from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES, build, check_rows, launch
 from mc_path_tracer_tpu_torch.ops.math import K_HUGE
+from mc_path_tracer_tpu_torch.utils.profiling import spanned
 
 # ray x triangle pairs per chunk of the plain versions: bounds their
 # [chunk, T] temporaries (~64 MB each) instead of materializing R x T
@@ -111,6 +112,7 @@ def trace_anyhit(rays: torch.Tensor, bvh: intersect.BVHArrays, geo: torch.Tensor
     return occ
 
 
+@spanned("mcpt::sort")
 def sort_perm(rd: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
     """Stable permutation [R] (int64) that groups a dispatch's lanes by
     direction octant, (dx > 0) * 4 + (dy > 0) * 2 + (dz > 0), with dead

@@ -26,7 +26,6 @@ several processes on one card (gloo reduces CUDA tensors itself).
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
@@ -36,8 +35,8 @@ from mc_path_tracer_tpu_torch.models import camera as camera_mod
 from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, render_tile_radiance
 from mc_path_tracer_tpu_torch.models.scene import SceneData
 from mc_path_tracer_tpu_torch.ops import rng
-from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
 from mc_path_tracer_tpu_torch.parallel.mesh import Mesh, make_mesh, replicated, tile_sharding
+from mc_path_tracer_tpu_torch.utils.profiling import span, spanned
 
 
 class MaterialGrads(NamedTuple):
@@ -82,6 +81,7 @@ def _firsts(mesh: Mesh, rows: int) -> list[int]:
     return [g * (rows // mesh.size) for g in mesh.local_shards()]
 
 
+@spanned("mcpt::rows")
 def _render_rows(scene_data, camera, width, height, cfg, key, mesh) -> torch.Tensor:
     """Radiance summed over cfg.spp samples for this process's shards' rows
     of the row-major frame, [rows, 3] on the mesh's first device."""
@@ -144,15 +144,17 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
     process group, and loss and gradients come back on the first device.
     `replay=False` keeps every sample's graph alive instead of replaying it
     (for comparisons; it needs spp times the memory).
-    `train_step.forward_launches` holds ops.kernels.LAUNCHES as the last
-    call's forward ended (every shard's); LAUNCHES minus it are its
-    backward's launches (the replayed samples').
-    `train_step.forward_seconds` is the last call's host seconds up to the
-    end of its forward's launches (no synchronisation: a card may still be
-    at that work); the rest of the call is the backward and the all-reduce."""
+    Each call runs in the kept spans (utils/profiling) `mcpt::train.step`,
+    and inside it `mcpt::train.forward` (every shard's forward, up to the
+    end of its launches: no synchronisation, a card may still be at that
+    work), `mcpt::train.backward` (torch.autograd.grad: the replayed
+    samples' spans open on autograd's thread meanwhile) and, with a process
+    group, `mcpt::train.all_reduce`.  GLOBAL_TIMINGS.last(name) holds the
+    last call's record of each: its host ns and the ops.kernels.LAUNCHES
+    counters that moved in it (the forward's and the backward's launches)."""
 
+    @spanned("mcpt::train.step", keep=True)
     def train_step(scene: SceneData, cam, px, py, target, key):
-        t0 = time.perf_counter()
         if mesh is None:
             device = scene.tris.v0.device
             shards = [(scene, cam, px, py, target, 0)]
@@ -163,22 +165,23 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
                               tile_sharding(mesh, target), _firsts(mesh, px.shape[0])))
         leaves, losses = [], []
         with torch.enable_grad():
-            for sd, c, pxs, pys, tgt, first in shards:
-                mat, ls, tex = scene_params(sd)
-                own = [p.detach().requires_grad_(True) for p in (*mat, ls, tex)]
-                params = (MaterialGrads(*own[:5]), own[5], own[6])
-                acc = render_tile_radiance(with_params(sd, params), c, width, height, pxs,
-                                           pys, key, cfg, spp, replay=replay, first=first)
-                loss = torch.mean((acc / spp - tgt) ** 2)
-                if mesh is not None and mesh.size > 1:
-                    loss = loss * (pxs.shape[0] / px.shape[0])
-                leaves.append(own)
-                losses.append(loss.to(device))
-            train_step.forward_launches.update(LAUNCHES)
-            train_step.forward_seconds = time.perf_counter() - t0
+            with span("mcpt::train.forward", keep=True):
+                for sd, c, pxs, pys, tgt, first in shards:
+                    mat, ls, tex = scene_params(sd)
+                    own = [p.detach().requires_grad_(True) for p in (*mat, ls, tex)]
+                    params = (MaterialGrads(*own[:5]), own[5], own[6])
+                    acc = render_tile_radiance(with_params(sd, params), c, width, height,
+                                               pxs, pys, key, cfg, spp, replay=replay,
+                                               first=first)
+                    loss = torch.mean((acc / spp - tgt) ** 2)
+                    if mesh is not None and mesh.size > 1:
+                        loss = loss * (pxs.shape[0] / px.shape[0])
+                    leaves.append(own)
+                    losses.append(loss.to(device))
             flat = [p for own in leaves for p in own]
             loss = sum(losses[1:], losses[0])
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            with span("mcpt::train.backward", keep=True):
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
         # the 7 gradients summed over this process's shards, on `device`
         summed = grads[:7]
@@ -186,11 +189,10 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
             summed = [a + b.to(device) for a, b in zip(summed, grads[i : i + 7])]
         loss = loss.detach()
         if mesh is not None and mesh.group is not None:
-            loss, summed = _all_reduce(mesh.group, [loss, *summed])
+            with span("mcpt::train.all_reduce", keep=True):
+                loss, summed = _all_reduce(mesh.group, [loss, *summed])
         return loss, (MaterialGrads(*summed[:5]), summed[5], summed[6])
 
-    train_step.forward_launches = {}
-    train_step.forward_seconds = None
     return train_step
 
 

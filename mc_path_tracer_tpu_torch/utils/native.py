@@ -22,6 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from mc_path_tracer_tpu_torch.utils.profiling import spanned
+
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bvh.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-march=native", "-shared"]
@@ -60,6 +62,7 @@ def _compile(out: Path) -> bool:
 
 
 @lru_cache(maxsize=1)
+@spanned("mcpt::native.load", keep=True)
 def load_native():
     """Load (building if necessary) the native library; None if unavailable."""
     out = library_path()

@@ -41,6 +41,7 @@ from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
 from mc_path_tracer_tpu_torch.parallel import render as tpar
 from mc_path_tracer_tpu_torch.parallel.mesh import make_mesh
 from mc_path_tracer_tpu_torch.utils import checkpoint as tckpt
+from mc_path_tracer_tpu_torch.utils.profiling import GLOBAL_TIMINGS
 from tests.test_torch_scene import small_scene
 
 W = H = 8
@@ -240,7 +241,7 @@ def _step_launches(step, *args):
     """(loss, grads, plain calls of the forward, plain calls of the backward)."""
     before = LAUNCHES["plain"]
     loss, grads = step(*args)
-    forward = step.forward_launches["plain"] - before
+    forward = GLOBAL_TIMINGS.last("mcpt::train.forward").launches.get("plain", 0)
     return loss, grads, forward, LAUNCHES["plain"] - before - forward
 
 

@@ -44,6 +44,7 @@ from mc_path_tracer_tpu_torch.ops import rng as trng
 from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES
 from mc_path_tracer_tpu_torch.parallel import mesh as tmesh
 from mc_path_tracer_tpu_torch.parallel import render as tpar
+from mc_path_tracer_tpu_torch.utils.profiling import GLOBAL_TIMINGS
 from tests.test_torch_arealight import one_thread  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -128,7 +129,7 @@ def steps(port, target):
     one = run_step(port, target, None)
     before = LAUNCHES["plain"]
     loss, grads, step = run_step(port, target, cpu_mesh())
-    forward = step.forward_launches["plain"] - before
+    forward = GLOBAL_TIMINGS.last("mcpt::train.forward").launches.get("plain", 0)
     return one[:2], (loss, grads), (forward, LAUNCHES["plain"] - before - forward)
 
 
@@ -230,9 +231,9 @@ def test_sharded_step_matches_jax_step(steps, jax_step):
 
 
 def test_sharded_step_counts_every_shard(steps):
-    """forward_launches sums the shards' forwards; the backward replays
-    each: per sample one closest and one fused any-hit dispatch for each
-    of the 8 shards' blocks."""
+    """The forward's kept span counts the shards' forwards; the backward
+    replays each: per sample one closest and one fused any-hit dispatch for
+    each of the 8 shards' blocks."""
     *_, (forward, backward) = steps
     assert forward == backward == SHARDS * SPP * 2
 
@@ -263,13 +264,15 @@ def test_sharded_sgd_step_lowers_the_loss(port):
 def test_sharded_step_gradients_on_2_and_4_shards(port, target, steps, shards):
     """The step on 2 and 4 shards: gradients within 1e-5 of the largest of
     the one-device step's, the loss within 1e-6, and the forward's host
-    seconds recorded."""
+    seconds recorded (its kept span, inside the step's)."""
     (loss1, grads1), *_ = steps
     loss, grads, step = run_step(port, target, cpu_mesh(shards))
     assert largest_gap([g.numpy() for g in grads], [g.numpy() for g in grads1]) <= \
         SHARD_GRAD_TOL
     assert abs(float(loss) - float(loss1)) <= 1e-6 * abs(float(loss1))
-    assert step.forward_seconds > 0
+    fwd, whole = (GLOBAL_TIMINGS.last(f"mcpt::train.{n}") for n in ("forward", "step"))
+    assert 0 < fwd.seconds < whole.seconds
+    assert whole.start_ns <= fwd.start_ns and fwd.end_ns <= whole.end_ns
 
 
 def test_shard_launch_counts_are_exact(port, monkeypatch):
