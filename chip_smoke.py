@@ -14,6 +14,10 @@ fails unless each dispatch went through the expected kernel:
                     bound) and the 4-wide walk's the kernel does
   [render]          bench path: 1920x1080, 4 spp, depth 5, through the
                     traversal kernel
+  [blocks]          the bench frame in one FRAME_CHUNK block (a forward
+                    render's cut) against the same frame in PIXEL_CHUNK
+                    blocks (a train step's cut): bit-equal radiance, each
+                    run's wall, launches and peak device memory
   [parity]          kernel route against plain route on a 64x64 crop
   [tonemap]         the tone-map kernel against plain on the bench film
   [api]             the JAX package's public traversal routes
@@ -918,6 +922,40 @@ def phase_render(sd, device, name_limit):
     return launches, film, frame_s
 
 
+def phase_blocks(sd, film, device, name_limit) -> None:
+    """The bench frame cut as a forward render cuts it (FRAME_CHUNK
+    blocks) and as a train step cuts it (FRAME_CHUNK patched down to
+    PIXEL_CHUNK): bit-equal radiance, equal to [render]'s frame, with each
+    run's wall, launches and torch.cuda.max_memory_allocated."""
+    from mc_path_tracer_tpu_torch.models import integrator
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
+
+    cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
+    wide = integrator.FRAME_CHUNK
+    frames = {}
+    for chunk in (integrator.PIXEL_CHUNK, wide):
+        integrator.FRAME_CHUNK = chunk
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got_film, seconds, got = _frame(sd, bench_camera(), WIDTH, HEIGHT, cfg,
+                                            device=device)
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            integrator.FRAME_CHUNK = wide
+        per = _blocks(WIDTH, HEIGHT, chunk) * SPP * (DEPTH - 1)
+        log(f"[blocks] bench {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} in {chunk}-pixel "
+            f"blocks: frame {seconds:.3f} s ({name_limit}), peak memory {peak / 1e9:.3f} GB; "
+            f"launches {got}")
+        _expect(f"[blocks] {chunk}-pixel blocks", got, {"closest": per, "anyhit": per})
+        frames[chunk] = got_film.ld
+    equal = bool(torch.equal(frames[wide], frames[integrator.PIXEL_CHUNK]))
+    same = bool(torch.equal(frames[wide], film.ld))
+    log(f"[blocks] radiance bit-equal across the cuts {equal}, and to [render]'s frame {same}")
+    if not equal or not same:
+        raise AssertionError("[blocks] the bench frame depends on its block cut")
+
+
 def phase_route_parity(sd):
     from mc_path_tracer_tpu_torch.models.integrator import RenderConfig
 
@@ -1497,17 +1535,28 @@ def _agree(a, b, rel):
     return ((a - b).abs() <= rel * b.abs() + 1e-6).all(dim=-1).float().mean().item()
 
 
-def _blocks(width, height):
+def _blocks(width, height, chunk=None):
+    """Blocks of a width x height pixel list cut every `chunk` pixels; by
+    default FRAME_CHUNK, as render_tile_radiance cuts a forward render."""
+    from mc_path_tracer_tpu_torch.models.integrator import FRAME_CHUNK
+
+    return -(-width * height // (chunk or FRAME_CHUNK))
+
+
+def _pixel_chunks(width, height):
+    """PIXEL_CHUNK blocks of a width x height pixel list: the blocks of a
+    train step (a call that records a graph) and the preview's chunks."""
     from mc_path_tracer_tpu_torch.models.integrator import PIXEL_CHUNK
 
-    return -(-width * height // PIXEL_CHUNK)
+    return _blocks(width, height, PIXEL_CHUNK)
 
 
 def _shard_blocks(width, height, shards) -> list[int]:
-    """Blocks of each of `shards` equal row ranges of a width x height
-    frame, cut on the whole frame's block grid (render_tile_radiance's
-    `first`, as a sharded train step cuts them): a block that a shard's
-    edge cuts runs in both shards."""
+    """Train-step blocks (PIXEL_CHUNK) of each of `shards` equal row ranges
+    of a width x height frame, cut on the whole frame's block grid
+    (render_tile_radiance's `first`, as a sharded train step cuts them): a
+    block that a shard's edge cuts runs in both shards.  A sharded forward
+    frame's shard cuts its own rows: _blocks(width, height // shards)."""
     from mc_path_tracer_tpu_torch.models.integrator import PIXEL_CHUNK
 
     rows = width * height // shards
@@ -1881,7 +1930,8 @@ def phase_grad(sd2, cam2, cfg2, device, name_limit) -> dict:
         if label == "config2 dense":
             per = {c_name: 4 * cfg.spp, a_name: 2 * cfg.spp}   # as [area]
         else:
-            per = dict.fromkeys((c_name, a_name), _blocks(w, h) * cfg.spp * (cfg.max_depth - 1))
+            per = dict.fromkeys((c_name, a_name),
+                                _pixel_chunks(w, h) * cfg.spp * (cfg.max_depth - 1))
         _expect(f"{label} train step forward", rec["forward"], per)
         for name in reached:
             if rec["grads"][GRAD_NAMES.index(name)].abs().sum().item() <= 0.0:
@@ -2102,7 +2152,7 @@ def phase_preview(device, out_dir: Path, name_limit) -> None:
 
     sd = build_scene("bench scene", build_bench_scene(), device, 48002)
     cam = camera_params(bench_camera(), WIDTH, HEIGHT, device)
-    chunks = _blocks(WIDTH, HEIGHT)
+    chunks = _pixel_chunks(WIDTH, HEIGHT)
     def view(mode):
         """The view as a user asks for it: render_preview or render_debug."""
         if mode == "debug":
@@ -2126,7 +2176,7 @@ def phase_preview(device, out_dir: Path, name_limit) -> None:
     scene = textured_scene(Scene, write_textured_glb(out_dir / "textured.glb"))
     sd = build_scene("textured glTF", scene, device, GLTF_TRIS)
     cam = camera_params(textured_camera(PerspectiveCamera), GLTF_SIZE, GLTF_SIZE, device)
-    chunks = _blocks(GLTF_SIZE, GLTF_SIZE)
+    chunks = _pixel_chunks(GLTF_SIZE, GLTF_SIZE)
     for mode in modes:
         images = {}
         for accel, names in (("auto", ("dense_closest", "dense_anyhit")),
@@ -2192,7 +2242,7 @@ def phase_matpreview(device, out_dir: Path, name_limit) -> None:
 
     size, spp, depth = 256, 16, 4
     per = _blocks(size, size) * spp * (depth - 1)
-    for path_traced, want in ((False, {"closest": _blocks(size, size)}),
+    for path_traced, want in ((False, {"closest": _pixel_chunks(size, size)}),
                               (True, {"closest": per, "anyhit": per})):
         _reset()
         t0 = time.perf_counter()
@@ -2904,6 +2954,7 @@ def main() -> int:
     later = []   # device timings, taken after the frames
     stats = phase_kernel_check(sd, device, later, name_limit)
     bench_launches, film, render_s = phase_render(sd, device, name_limit)
+    phase_blocks(sd, film, device, name_limit)
     phase_route_parity(sd)
     stats["tonemap"] = phase_tonemap(film, later, name_limit)
     new_paths = phase_sharded(sd, film, render_s, device, out_dir, name_limit)

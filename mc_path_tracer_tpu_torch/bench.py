@@ -21,7 +21,9 @@ frame instead and scales their mean to the frame.  A block over 3x the
 median is re-measured once and the re-measured time is kept.  Rays are
 counted by utils.profiling.rays_per_sample (12 at depth 5); with
 `--reuse` the traced count is 2 * depth - 1.  `vs_baseline` divides by
-bench.py's anchor of 100 Mrays/s.  Runs on the card only.
+bench.py's anchor of 100 Mrays/s.  Runs on the card only.  The blocks are
+bench.py's, not `integrator.render`'s: a forward frame renders in
+FRAME_CHUNK blocks (one at 1080p), which this timing does not see.
 """
 
 from __future__ import annotations

@@ -105,6 +105,8 @@ RR_MIN_Q = 0.05
 DEFAULT_SPP = 250
 DEFAULT_MAX_DEPTH = 5
 PIXEL_CHUNK = 65536
+# a forward-only render's block: 32 PIXEL_CHUNK blocks, a whole 1080p frame
+FRAME_CHUNK = 32 * PIXEL_CHUNK
 # scenes at or below this triangle count skip the BVH on the card: the dense
 # kernel tests every triangle (the JAX package's _resolve_accel threshold)
 DENSE_ACCEL_MAX_TRIS = 2048
@@ -460,19 +462,25 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
                          spp: int | None = None, replay: bool = True,
                          first: int = 0) -> torch.Tensor:
     """Radiance summed over `spp` samples for pixels (px, py) [R] (f32
-    pixel coordinates), [R, 3].  The pixels run in PIXEL_CHUNK-ray blocks,
-    each through every sample before the next block starts, so live state
-    stays bounded by the block.  Under autograd each sample is replayed in
-    the backward (module docstring) unless `replay=False`, which keeps every
-    sample's graph alive until the backward instead.  `first` is px[0]'s
-    index in a longer pixel list that is rendered in parts (a shard's rows):
-    blocks are cut at multiples of PIXEL_CHUNK of that list, so each part
-    runs the whole list's blocks (one cut by a part's edge runs as two),
-    and a gradient summed over the parts adds the same per-block sums."""
+    pixel coordinates), [R, 3].  The pixels run in blocks, each through
+    every sample before the next block starts, so live state stays bounded
+    by the block: PIXEL_CHUNK rays while autograd records a graph,
+    FRAME_CHUNK rays otherwise (a forward frame keeps no graph, and fewer,
+    larger blocks launch fewer kernels).  Each lane's path is its own and
+    its noise is keyed by pixel id, so the radiance does not depend on the
+    cut.  Under autograd each sample is replayed in the backward (module
+    docstring) unless `replay=False`, which keeps every sample's graph
+    alive until the backward instead.  `first` is px[0]'s index in a
+    longer pixel list that is rendered in parts (a shard's rows): blocks
+    are cut at multiples of the block size of that list, so each part runs
+    the whole list's blocks (one cut by a part's edge runs as two), and a
+    gradient summed over the parts adds the same per-block sums."""
     spp = cfg.spp if spp is None else spp
-    replay = replay and torch.is_grad_enabled() and _requires_grad(scene, camera)
+    records = torch.is_grad_enabled() and _requires_grad(scene, camera)
+    replay = replay and records
+    chunk = PIXEL_CHUNK if records else FRAME_CHUNK
     r = px.shape[0]
-    cuts = sorted({0, *range(-first % PIXEL_CHUNK, r, PIXEL_CHUNK)}) + [r]
+    cuts = sorted({0, *range(-first % chunk, r, chunk)}) + [r]
     blocks = []
     for b, (s0, s1) in enumerate(zip(cuts[:-1], cuts[1:])):
         px_c, py_c = px[s0:s1], py[s0:s1]

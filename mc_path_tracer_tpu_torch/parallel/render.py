@@ -9,13 +9,14 @@ its rows are split.  A train step runs each shard's forward and replayed
 backward, sums the parameter gradients over the process's shards, then
 all-reduces them over the process group when there is one: the all-reduce
 that the transpose of JAX's shard_map inserts.  The shards of one process
-are enqueued in turn from one host thread.  The frame is launch-bound on
-the host, so the cards of one process share that thread's time: the
+are enqueued in turn from one host thread, which makes every shard's
+launches, so the cards of one process share that thread's time: the
 route on which several cards work at once is one process per card
 (render_sharded_global under torchrun, as bench_scaling.py runs it).  A
-train step's shards cut their rows on the whole frame's block grid
-(render_tile_radiance's `first`), so that their gradients add the
-one-device step's per-block sums.
+frame's shard cuts its own rows into forward blocks (FRAME_CHUNK); a
+train step's shards cut their rows on the whole frame's PIXEL_CHUNK
+block grid (render_tile_radiance's `first`), so that their gradients add
+the one-device step's per-block sums.
 
 `render_sharded` is the multi-device PathTracer::render_image;
 `render_sharded_global` is its multi-process form; `make_train_step` builds

@@ -368,29 +368,33 @@ def test_init_distributed_reads_one_process_torchrun_environment(monkeypatch):
 
 
 def test_shard_blocks_follow_the_frame_grid(port, target, steps, monkeypatch):
-    """With 40-pixel blocks and 4 shards of 64 pixels, a frame's shard cuts
-    blocks from its own first row (2 each), while a train step's shard cuts
-    them on the frame's grid (render_tile_radiance's `first`: 2, 3, 2, 3),
-    so that every block of the one-device step (7) runs whole or in two
+    """With 40-pixel blocks under autograd, 120-pixel forward blocks and 4
+    shards of 64 pixels, a frame (3 blocks) has each shard cut blocks from
+    its own first row (1 each), while a train step's shard cuts 40-pixel
+    blocks on the frame's grid (render_tile_radiance's `first`: 2, 3, 2,
+    3), so that every block of the one-device step (7) runs whole or in two
     parts; frames bit-equal, gradients within 1e-5 of the largest."""
     sd, cam = port
     cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
     monkeypatch.setattr(tint, "PIXEL_CHUNK", 40)
+    monkeypatch.setattr(tint, "FRAME_CHUNK", 120)
     before = LAUNCHES["plain"]
     single = tint.render(sd, cam, W, H, cfg, key=trng.prng_key(0))
-    assert LAUNCHES["plain"] - before == 7 * 2 * SPP
+    assert LAUNCHES["plain"] - before == 3 * 2 * SPP
     frame, shards = shard_launches(lambda: tpar.render_sharded(
         sd, cam, W, H, cfg, key=trng.prng_key(0), mesh=cpu_mesh(4)))
-    assert [got["plain"] for got in shards] == [2 * 2 * SPP] * 4
+    assert [got["plain"] for got in shards] == [1 * 2 * SPP] * 4
     assert torch.equal(frame, single.ld)
     (_, grads1), *_ = steps
     (_, grads, _), shards = shard_launches(lambda: run_step(port, target, cpu_mesh(4)))
     assert [got["plain"] for got in shards] == [n * 2 * SPP for n in (2, 3, 2, 3)]
     assert largest_gap([g.numpy() for g in grads], [g.numpy() for g in grads1]) <= \
         SHARD_GRAD_TOL
-    # 100 pixels whose first is pixel 40 of the list, 48-pixel blocks: cuts at 8 and 56
+    # 100 pixels whose first is pixel 40 of the list, 96-pixel forward
+    # blocks: a cut at 56
     monkeypatch.setattr(tint, "PIXEL_CHUNK", 48)
+    monkeypatch.setattr(tint, "FRAME_CHUNK", 96)
     px, py = (torch.from_numpy(v[:100]) for v in pixels())
     before = LAUNCHES["plain"]
     tint.render_tile_radiance(sd, cam, W, H, px, py, trng.prng_key(0), cfg, first=40)
-    assert LAUNCHES["plain"] - before == 3 * 2 * SPP
+    assert LAUNCHES["plain"] - before == 2 * 2 * SPP
