@@ -1225,7 +1225,8 @@ def phase_area(sd, cam, cfg, device, png: Path, name_limit):
             f"accel={accel}: frame {frame_s:.3f} s ({name_limit}); launches {got}; "
             f"image mean {img.mean().item():.5f}; wrote {path}")
         _expect(f"accel={accel}", got,
-                {c_name: per_sample["closest"], a_name: per_sample["anyhit"], "tonemap": 1})
+                {c_name: per_sample["closest"], a_name: per_sample["anyhit"], "tonemap": 1,
+                 "anyhit_bounded": per_sample["anyhit"]})
         _check_image(f"config2 accel={accel}", img)
         launches[accel] = got
     a, b = images["auto"], images["dense"]
@@ -1265,8 +1266,11 @@ def phase_area_scene(device):
     got = _launches()
     log(f"[area] area scene 64x64 4 spp accel=auto: launches {got}, "
         f"image mean {img.mean().item():.5f}")
-    others = {k: v for k, v in got.items() if k not in ("dense_closest", "dense_anyhit") and v}
-    if not got["dense_closest"] or not got["dense_anyhit"] or others:
+    # every any-hit of an area-lit scene is a bounded shadow ray
+    others = {k: v for k, v in got.items()
+              if k not in ("dense_closest", "dense_anyhit", "anyhit_bounded") and v}
+    if (not got["dense_closest"] or not got["dense_anyhit"] or others
+            or got["anyhit_bounded"] != got["dense_anyhit"]):
         raise AssertionError(f"the area scene did not take the dense kernel alone: {got}")
 
 
@@ -1518,9 +1522,11 @@ def _frame(scene, cam, width, height, cfg, key=0, device="cuda"):
 
 def _expect(label, got, want):
     """Fail unless the kernel launches and plain calls are exactly `want`
-    (others 0); sort_perm calls ("sort") are checked where they are asked
-    for, in [sort]."""
-    wrong = {k: got[k] for k in got if k != "sort" and got[k] != want.get(k, 0)}
+    (others 0); sort_perm calls ("sort", in [sort]) and bounded any-hit
+    dispatches ("anyhit_bounded", in [area] and [reuse]) are checked where
+    they are asked for."""
+    wrong = {k: got[k] for k in got if (k in want or k not in ("sort", "anyhit_bounded"))
+             and got[k] != want.get(k, 0)}
     if wrong:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
@@ -1758,7 +1764,8 @@ def phase_reuse(sd2, cam2, cfg2, two_sample: dict, scenes, device, name_limit) -
     log(f"[reuse] config2 {AREA_SIZE}x{AREA_SIZE} {cfg.spp} spp depth {cfg.max_depth} "
         f"reuse_brdf_ray=True: frame {seconds:.3f} s ({name_limit}); launches {got} "
         f"(two-sample: {two_sample}); image mean {img.mean().item():.5f}")
-    _expect("reuse config2", got, {"closest": 3 * cfg.spp, "anyhit": 2 * cfg.spp})
+    _expect("reuse config2", got, {"closest": 3 * cfg.spp, "anyhit": 2 * cfg.spp,
+                                   "anyhit_bounded": 2 * cfg.spp})
     _check_image("reuse config2", img)
     if got["closest"] >= two_sample["closest"] or got["anyhit"] > two_sample["anyhit"]:
         raise AssertionError("reuse_brdf_ray made no fewer dispatches than two samples")

@@ -67,7 +67,11 @@ The stages run in spans of utils/profiling, recorded only under a
 profiler session: `mcpt::render` (its own time: the frame's set-up),
 `mcpt::sample` per block and sample, `mcpt::camera`, `mcpt::trace`,
 `mcpt::bounce` per bounce (its own time: the shading glue),
-`mcpt::closest` / `mcpt::anyhit` per dispatch and `mcpt::film`.
+`mcpt::closest` / `mcpt::anyhit` per dispatch and `mcpt::film`; with an
+area light, `mcpt::area.sample` (the light sample on the emitters and its
+merge) and `mcpt::area.hit` (the BRDF ray's emitter hit and its merge)
+inside each bounce, beside its dispatches.  LAUNCHES["anyhit_bounded"]
+counts the any-hit dispatches that carry a t_max.
 """
 
 from __future__ import annotations
@@ -92,7 +96,7 @@ from mc_path_tracer_tpu_torch.ops.intersect import (
     occluded_bvh,
     pack_rays,
 )
-from mc_path_tracer_tpu_torch.ops.kernels import dense, traversal
+from mc_path_tracer_tpu_torch.ops.kernels import LAUNCHES, dense, traversal
 from mc_path_tracer_tpu_torch.ops.sampling import power_heuristic
 from mc_path_tracer_tpu_torch.utils.profiling import span, spanned
 
@@ -191,6 +195,8 @@ def _intersect(scene: SceneData, route: str, ro, rd, mask=None) -> Hit:
 
 @spanned("mcpt::anyhit")
 def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
+    if t_max is not None:
+        LAUNCHES["anyhit_bounded"] += 1
     if route in ("bvh", "sorted"):
         return occluded_bvh(scene.bvh, scene.tris, ro, rd, mask=mask, t_max=t_max,
                             sort=route == "sorted")
@@ -257,19 +263,20 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
                 # which also picks the two-sample BRDF lobe below, as in the JAX
                 # package (a correlation of two unbiased estimators, kept for
                 # pixel parity)
-                is_area = l_id == aid
-                wl_a, dist_a, li_a, pdf_a = lights_mod.sample_area(
-                    lights.area, scene.tris, pos, u[:, 1:4])
-                wl_a, dist_a, pdf_a = wl_a.detach(), dist_a.detach(), pdf_a.detach()
-                wl = torch.where(is_area[..., None], wl_a, wl)
-                li_light = torch.where(is_area[..., None], li_a, li_light)
-                pdf_light = torch.where(is_area, pdf_a, pdf_light)
-                # bounded shadow ray: blockers strictly between surface and
-                # light; the 2 * SHADOW_OFFSET margin covers the origin's offset
-                # so the emitter never occludes itself
-                shadow_tmax = torch.where(
-                    is_area, dist_a * (1.0 - 1e-3) - 2.0 * SHADOW_OFFSET,
-                    torch.full_like(dist_a, 1e32))
+                with span("mcpt::area.sample"):
+                    is_area = l_id == aid
+                    wl_a, dist_a, li_a, pdf_a = lights_mod.sample_area(
+                        lights.area, scene.tris, pos, u[:, 1:4])
+                    wl_a, dist_a, pdf_a = wl_a.detach(), dist_a.detach(), pdf_a.detach()
+                    wl = torch.where(is_area[..., None], wl_a, wl)
+                    li_light = torch.where(is_area[..., None], li_a, li_light)
+                    pdf_light = torch.where(is_area, pdf_a, pdf_light)
+                    # bounded shadow ray: blockers strictly between surface and
+                    # light; the 2 * SHADOW_OFFSET margin covers the origin's
+                    # offset so the emitter never occludes itself
+                    shadow_tmax = torch.where(
+                        is_area, dist_a * (1.0 - 1e-3) - 2.0 * SHADOW_OFFSET,
+                        torch.full_like(dist_a, 1e32))
             shadow_o = pos + n * SHADOW_OFFSET
             f_light = brdf.mixture_f(mat, n, wl, wo)
             pdf_brdf_at_wl = torch.where(
@@ -320,14 +327,15 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
                 hit_b = _intersect(scene, route, vis_o, wb, mask=ext_mask)
                 if shared:
                     isect_next = hit_b
-                li_hit, pdf_sa_hit, on_light = lights_mod.area_eval_hit(
-                    lights.area, scene.tris, hit_b, vis_o)
-                vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & surv
-                li_brdf_raw = torch.where(
-                    is_area[..., None], li_hit, lights_mod.radiance(lights, l_id, wb))
-                pdf_l_at_wb_raw = torch.where(
-                    is_area, pdf_sa_hit.detach(),
-                    lights_mod.pdf(lights, l_id, wb, env_importance=cfg.env_importance))
+                with span("mcpt::area.hit"):
+                    li_hit, pdf_sa_hit, on_light = lights_mod.area_eval_hit(
+                        lights.area, scene.tris, hit_b, vis_o)
+                    vis2 = torch.where(is_area, on_light, ~hit_b.hit) & ~delta & surv
+                    li_brdf_raw = torch.where(
+                        is_area[..., None], li_hit, lights_mod.radiance(lights, l_id, wb))
+                    pdf_l_at_wb_raw = torch.where(
+                        is_area, pdf_sa_hit.detach(),
+                        lights_mod.pdf(lights, l_id, wb, env_importance=cfg.env_importance))
             elif shared:
                 # the R-lane shadow any-hit; the extension's closest hit doubles
                 # as the visibility query (a miss sees the environment along wb)

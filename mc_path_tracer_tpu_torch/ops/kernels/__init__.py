@@ -7,7 +7,10 @@ launches per entry point, where the wrapper launches, plain-version calls
 ("plain"), so a run can show which path it took, and the permutations
 `traversal.sort_perm` builds for the sorted traversal dispatches ("sort":
 plain PyTorch, several device launches each, none of them a kernel of
-this package).
+this package), and the any-hit dispatches of the integrator that carry a
+t_max ("anyhit_bounded": the area light's shadow rays, counted on every
+route, the CPU's plain version included; "anyhit" still counts each
+any-hit kernel launch).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ LAUNCHES = {
     "tonemap": 0,                            # csrc/tonemap.cu
     "plain": 0,                              # plain-version calls
     "sort": 0,                               # traversal.sort_perm calls
+    "anyhit_bounded": 0,                     # integrator any-hits with a t_max
 }
 
 

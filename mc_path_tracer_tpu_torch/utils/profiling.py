@@ -4,7 +4,8 @@ ray-throughput accounting for renders, and a device trace.
 
 Spans (`span`, `spanned`) mark the program's stages, all named `mcpt::...`:
 the frame's render, sample, camera, trace, bounce, closest, anyhit, sort,
-finish_closest, film and tonemap; the preview's chunks and IBL products;
+finish_closest, film and tonemap, and the area light's area.sample and
+area.hit; the preview's chunks and IBL products;
 the train step's forward, backward and all-reduce; the rows of a sharded
 frame; the scene's build and the kernels' load.  While a torch profiler
 session records, each span appends a `SpanRecord` to `GLOBAL_TIMINGS`:

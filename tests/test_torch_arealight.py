@@ -157,7 +157,8 @@ def test_config2_render_matches_golden(one_thread):
     """The port's config2 at 16x16, 8 spp, depth 3, key 42 on the CPU
     against the JAX render stored in tests/golden/config2.npy; on CPU
     tensors every dispatch takes the plain version: 4 closest hits and 2
-    bounded any-hits per sample, each over lanes sorted by sort_rays."""
+    bounded any-hits per sample (LAUNCHES["anyhit_bounded"]), each over
+    lanes sorted by sort_rays."""
     scene, cam, _, _ = tconfigs.config2_mis_area_light()
     before = dict(LAUNCHES)
     img = render(scene, cam, 16, 16, RenderConfig(spp=8, max_depth=3),
@@ -169,7 +170,9 @@ def test_config2_render_matches_golden(one_thread):
     assert abs(img.mean() - want.mean()) <= 1e-4 * abs(want.mean())
     assert LAUNCHES["plain"] - before["plain"] == 8 * 6
     assert LAUNCHES["sort"] - before["sort"] == 8 * 6
-    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES if k not in ("plain", "sort"))
+    assert LAUNCHES["anyhit_bounded"] - before["anyhit_bounded"] == 8 * 2
+    assert all(LAUNCHES[k] == before[k] for k in LAUNCHES
+               if k not in ("plain", "sort", "anyhit_bounded"))
 
 
 def test_area_scene_renders_its_emitter():
