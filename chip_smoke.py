@@ -18,6 +18,13 @@ fails unless each dispatch went through the expected kernel:
                     render's cut) against the same frame in PIXEL_CHUNK
                     blocks (a train step's cut): bit-equal radiance, each
                     run's wall, launches and peak device memory
+  [batch]           a forward block's samples batched into its lanes, each
+                    run against the same call at FRAME_CHUNK = PIXEL_CHUNK
+                    (one sample a pass): one four-card rank's rows of the
+                    bench frame (518,400 pixels x 4 spp in one pass, not
+                    8 blocks x 4) and, after [area], config2 at 256x256 x
+                    64 spp (2 passes, not 64): radiance bit-equal, each
+                    run's wall and launches
   [parity]          kernel route against plain route on a 64x64 crop
   [tonemap]         the tone-map kernel against plain on the bench film
   [api]             the JAX package's public traversal routes
@@ -943,7 +950,7 @@ def phase_blocks(sd, film, device, name_limit) -> None:
             peak = torch.cuda.max_memory_allocated()
         finally:
             integrator.FRAME_CHUNK = wide
-        per = _blocks(WIDTH, HEIGHT, chunk) * SPP * (DEPTH - 1)
+        per = _passes(WIDTH * HEIGHT, SPP, chunk) * (DEPTH - 1)
         log(f"[blocks] bench {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} in {chunk}-pixel "
             f"blocks: frame {seconds:.3f} s ({name_limit}), peak memory {peak / 1e9:.3f} GB; "
             f"launches {got}")
@@ -954,6 +961,40 @@ def phase_blocks(sd, film, device, name_limit) -> None:
     log(f"[blocks] radiance bit-equal across the cuts {equal}, and to [render]'s frame {same}")
     if not equal or not same:
         raise AssertionError("[blocks] the bench frame depends on its block cut")
+
+
+def phase_batch(label, sd, params, width, height, px, py, cfg, per_pass, name_limit) -> None:
+    """render_tile_radiance of the pixels (px, py) as a forward render
+    cuts them (FRAME_CHUNK blocks, each block's samples batched into its
+    lanes) and with FRAME_CHUNK patched down to PIXEL_CHUNK (blocks of
+    more than half of it: one sample a pass): bit-equal radiance, each
+    run's wall and exact launches, `per_pass` dispatches a pass."""
+    from mc_path_tracer_tpu_torch.models import integrator
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    wide = integrator.FRAME_CHUNK
+    sums = {}
+    for chunk in (wide, integrator.PIXEL_CHUNK):
+        integrator.FRAME_CHUNK = chunk
+        try:
+            _reset()
+            t0 = time.perf_counter()
+            sums[chunk] = integrator.render_tile_radiance(sd, params, width, height, px, py,
+                                                          rng.prng_key(0), cfg)
+            got = _launches()
+            seconds = time.perf_counter() - t0
+        finally:
+            integrator.FRAME_CHUNK = wide
+        passes = _passes(px.shape[0], cfg.spp, chunk)
+        log(f"[batch] {label}: {px.shape[0]} pixels x {cfg.spp} spp at FRAME_CHUNK {chunk}, "
+            f"{passes} sample passes: {seconds:.3f} s ({name_limit}); launches {got}")
+        _expect(f"[batch] {label} at FRAME_CHUNK {chunk}", got,
+                {k: v * passes for k, v in per_pass.items()})
+    equal = bool(torch.equal(sums[wide], sums[integrator.PIXEL_CHUNK]))
+    log(f"[batch] {label}: radiance bit-equal to one sample a pass {equal}, max abs diff "
+        f"{(sums[wide] - sums[integrator.PIXEL_CHUNK]).abs().max().item():.3e}")
+    if not equal:
+        raise AssertionError(f"[batch] {label}: batched samples change the radiance")
 
 
 def phase_route_parity(sd):
@@ -1206,7 +1247,8 @@ def phase_area(sd, cam, cfg, device, png: Path, name_limit):
     from mc_path_tracer_tpu_torch.models.integrator import render
     from mc_path_tracer_tpu_torch.ops import rng
 
-    per_sample = {"closest": 4 * AREA_SPP, "anyhit": 2 * AREA_SPP}
+    passes = _passes(AREA_SIZE * AREA_SIZE, AREA_SPP)
+    per_frame = {"closest": 4 * passes, "anyhit": 2 * passes}
     images, launches = {}, {}
     for accel, (c_name, a_name) in (("auto", ("closest", "anyhit")),
                                     ("dense", ("dense_closest", "dense_anyhit"))):
@@ -1225,8 +1267,8 @@ def phase_area(sd, cam, cfg, device, png: Path, name_limit):
             f"accel={accel}: frame {frame_s:.3f} s ({name_limit}); launches {got}; "
             f"image mean {img.mean().item():.5f}; wrote {path}")
         _expect(f"accel={accel}", got,
-                {c_name: per_sample["closest"], a_name: per_sample["anyhit"], "tonemap": 1,
-                 "anyhit_bounded": per_sample["anyhit"]})
+                {c_name: per_frame["closest"], a_name: per_frame["anyhit"], "tonemap": 1,
+                 "anyhit_bounded": per_frame["anyhit"]})
         _check_image(f"config2 accel={accel}", img)
         launches[accel] = got
     a, b = images["auto"], images["dense"]
@@ -1403,7 +1445,7 @@ def phase_sort(device, name_limit) -> dict:
 
     sd = phase_scene(device)
     cam = bench_camera()
-    per = _blocks(WIDTH, HEIGHT) * SPP * (DEPTH - 1)
+    per = _passes(WIDTH * HEIGHT, SPP) * (DEPTH - 1)
     seconds, frames, launches = {True: [], False: []}, {}, {}
     for i in range(SORT_RUNS):
         for sort in (True, False) if i % 2 == 0 else (False, True):
@@ -1549,6 +1591,18 @@ def _blocks(width, height, chunk=None):
     return -(-width * height // (chunk or FRAME_CHUNK))
 
 
+def _passes(pixels, spp, chunk=None):
+    """Sample passes of a forward render_tile_radiance of `pixels` pixels
+    (`first` 0) cut every `chunk` pixels, FRAME_CHUNK by default: a block
+    of B pixels runs ceil(spp / k) passes of k = min(spp, chunk // B), at
+    least 1, samples."""
+    from mc_path_tracer_tpu_torch.models.integrator import FRAME_CHUNK
+
+    chunk = chunk or FRAME_CHUNK
+    sizes = [min(chunk, pixels - s) for s in range(0, pixels, chunk)]
+    return sum(-(-spp // max(1, min(spp, chunk // b))) for b in sizes)
+
+
 def _pixel_chunks(width, height):
     """PIXEL_CHUNK blocks of a width x height pixel list: the blocks of a
     train step (a call that records a graph) and the preview's chunks."""
@@ -1562,7 +1616,7 @@ def _shard_blocks(width, height, shards) -> list[int]:
     of a width x height frame, cut on the whole frame's block grid
     (render_tile_radiance's `first`, as a sharded train step cuts them): a
     block that a shard's edge cuts runs in both shards.  A sharded forward
-    frame's shard cuts its own rows: _blocks(width, height // shards)."""
+    frame's shard cuts its own rows: _passes(width * height // shards, spp)."""
     from mc_path_tracer_tpu_torch.models.integrator import PIXEL_CHUNK
 
     rows = width * height // shards
@@ -1596,7 +1650,7 @@ def phase_configs(device, out_dir: Path, name_limit):
         film.save_png(str(path))
         saved = _launches()
         img = film.radiance_mean()
-        per = _blocks(w, h) * cfg.spp * (cfg.max_depth - 1)
+        per = _passes(w * h, cfg.spp) * (cfg.max_depth - 1)
         log(f"[configs] config{n}: {CONFIG_TRIS[n]} triangles, {w}x{h} {cfg.spp} spp depth "
             f"{cfg.max_depth}: frame {seconds:.3f} s ({name_limit}); launches {got}; "
             f"image mean {img.mean().item():.5f}; wrote {path} (launches {saved})")
@@ -1631,7 +1685,7 @@ def phase_golden(scenes, device):
             f"{GOLDEN_ATOL:g} (at least {min_share}), {share_1e2:.6f} within rtol 1e-2, max "
             f"abs diff {(got_img - want).abs().max().item():.3e}, frame mean rel "
             f"{mean_rel:.3e}; launches {got}")
-        per = _blocks(w, h) * spp * (depth - 1)
+        per = _passes(w * h, spp) * (depth - 1)
         _expect(name, got, {"closest": per, "anyhit": per})
         if share < min_share or mean_rel > GOLDEN_MEAN_REL:
             raise AssertionError(f"{name} misses its golden")
@@ -1674,10 +1728,10 @@ def phase_gltf(device, out_dir: Path, name_limit) -> None:
         f"{tuple(sd.atlas.data.shape)} atlas, {sd.lights.area.count} emissive triangles")
     cam = textured_camera(PerspectiveCamera)
     size, spp, depth = GLTF_SIZE, GLTF_SPP, GLTF_DEPTH
-    blocks = _blocks(size, size)
-    # area light: per sample 1 + (depth - 1) + (depth - 2) closest, depth - 1 any-hit
-    closest = blocks * spp * (2 * depth - 2)
-    anyhit = blocks * spp * (depth - 1)
+    passes = _passes(size * size, spp)
+    # area light: per pass 1 + (depth - 1) + (depth - 2) closest, depth - 1 any-hit
+    closest = passes * (2 * depth - 2)
+    anyhit = passes * (depth - 1)
     images = {}
     for accel, names in (("auto", ("dense_closest", "dense_anyhit")),
                          ("pallas", ("closest", "anyhit"))):
@@ -1764,8 +1818,9 @@ def phase_reuse(sd2, cam2, cfg2, two_sample: dict, scenes, device, name_limit) -
     log(f"[reuse] config2 {AREA_SIZE}x{AREA_SIZE} {cfg.spp} spp depth {cfg.max_depth} "
         f"reuse_brdf_ray=True: frame {seconds:.3f} s ({name_limit}); launches {got} "
         f"(two-sample: {two_sample}); image mean {img.mean().item():.5f}")
-    _expect("reuse config2", got, {"closest": 3 * cfg.spp, "anyhit": 2 * cfg.spp,
-                                   "anyhit_bounded": 2 * cfg.spp})
+    passes = _passes(AREA_SIZE * AREA_SIZE, cfg.spp)
+    _expect("reuse config2", got, {"closest": 3 * passes, "anyhit": 2 * passes,
+                                   "anyhit_bounded": 2 * passes})
     _check_image("reuse config2", img)
     if got["closest"] >= two_sample["closest"] or got["anyhit"] > two_sample["anyhit"]:
         raise AssertionError("reuse_brdf_ray made no fewer dispatches than two samples")
@@ -2068,6 +2123,7 @@ def phase_bench(name_limit) -> None:
     function its main calls): the result line and its keys, and every
     block through the traversal kernel."""
     from mc_path_tracer_tpu_torch import bench
+    from mc_path_tracer_tpu_torch.models.integrator import PIXEL_CHUNK
 
     _reset()
     out = bench.run(strided=True, log=lambda msg: log(f"[bench] {msg}"))
@@ -2075,7 +2131,8 @@ def phase_bench(name_limit) -> None:
     log(f"[bench] {json.dumps(out)}")
     missing = [k for k in BENCH_KEYS if k not in out]
     # the warm-up, the timed blocks and the re-measured ones, each a block
-    per = SPP * (DEPTH - 1)
+    # of PIXEL_CHUNK pixels, its samples in one pass
+    per = _passes(PIXEL_CHUNK, SPP) * (DEPTH - 1)
     log(f"[bench] strided: {out['value']:.3f} Mrays/s, frame {out['frame_s']:.3f} s "
         f"({name_limit}); launches {got}")
     if missing or not np.isfinite(out["value"]) or out["value"] <= 0.0:
@@ -2248,7 +2305,7 @@ def phase_matpreview(device, out_dir: Path, name_limit) -> None:
     from mc_path_tracer_tpu_torch.models.matpreview import preview_material
 
     size, spp, depth = 256, 16, 4
-    per = _blocks(size, size) * spp * (depth - 1)
+    per = _passes(size * size, spp) * (depth - 1)
     for path_traced, want in ((False, {"closest": _pixel_chunks(size, size)}),
                               (True, {"closest": per, "anyhit": per})):
         _reset()
@@ -2413,7 +2470,7 @@ def phase_sharded(sd, film, render_s, device, out_dir: Path, name_limit) -> dict
     launches = _launches()
     seconds = time.perf_counter() - t0
     equal = bool(torch.equal(frame, film.ld))
-    per = _blocks(WIDTH, HEIGHT // SHARDS) * SPP * (DEPTH - 1)
+    per = _passes(WIDTH * HEIGHT // SHARDS, SPP) * (DEPTH - 1)
     log(f"[sharded] bench {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} on {SHARDS} shards of "
         f"{device}: frame {seconds:.3f} s against [render]'s {render_s:.3f} s ({name_limit}); "
         f"launches {launches}, per shard {shards}; bit-equal to the one-device frame {equal}, "
@@ -2656,8 +2713,8 @@ def phase_images(device, out_dir: Path, name_limit) -> dict:
     sd = build_scene("JPEG-textured glTF", scene, device, GLTF_TRIS)
     cam = textured_camera(PerspectiveCamera)
     size, spp, depth = GLTF_SIZE, GLTF_SPP, GLTF_DEPTH
-    blocks = _blocks(size, size)
-    closest, anyhit = blocks * spp * (2 * depth - 2), blocks * spp * (depth - 1)
+    passes = _passes(size * size, spp)
+    closest, anyhit = passes * (2 * depth - 2), passes * (depth - 1)
     frames, launches = {}, {}
     for accel, names in (("auto", ("dense_closest", "dense_anyhit")),
                          ("pallas", ("closest", "anyhit"))):
@@ -2721,7 +2778,7 @@ def phase_procedural(device, out_dir: Path, name_limit) -> dict:
     cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
     film, seconds, got = _frame(sd, tree_camera(PerspectiveCamera), WIDTH, HEIGHT, cfg)
     img = film.radiance_mean()
-    per = _blocks(WIDTH, HEIGHT) * SPP * (DEPTH - 1)
+    per = _passes(WIDTH * HEIGHT, SPP) * (DEPTH - 1)
     log(f"[procedural] L-system tree, {TREE_GENERATIONS} generations of {TREE_RULE!r}: "
         f"{TREE_TRIS} tree triangles + 2 floor, built on the host in {host_s:.3f} s; "
         f"{WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH}: frame {seconds:.3f} s ({name_limit}); "
@@ -2951,6 +3008,8 @@ def main() -> int:
             raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
         rank, world, port, out = args.worker
         return worker(int(rank), int(world), int(port), out)
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, camera_params
+
     png = Path(args.png)
     name_limit = phase_device()
     png.parent.mkdir(parents=True, exist_ok=True)
@@ -2965,11 +3024,23 @@ def main() -> int:
     phase_route_parity(sd)
     stats["tonemap"] = phase_tonemap(film, later, name_limit)
     new_paths = phase_sharded(sd, film, render_s, device, out_dir, name_limit)
+    # one four-card rank's rows of the bench frame (rank 1: rows 270..539)
+    rows = torch.arange(HEIGHT // 4, HEIGHT // 2, device=device)
+    ys, xs = torch.meshgrid(rows, torch.arange(WIDTH, device=device), indexing="ij")
+    phase_batch("bench frame, rank 1 of 4", sd,
+                dataclasses.replace(bench_camera(), aspect=WIDTH / HEIGHT).params(device),
+                WIDTH, HEIGHT, xs.reshape(-1).float(), ys.reshape(-1).float(),
+                RenderConfig(spp=SPP, max_depth=DEPTH),
+                {"closest": DEPTH - 1, "anyhit": DEPTH - 1}, name_limit)
     new_paths["api"] = phase_api(sd, device, name_limit)
     del sd, film
     sd2, cam2, cfg2 = config2_scene(device)
     stats.update(phase_dense(sd2, cam2, device, later, name_limit))
     area_launches = phase_area(sd2, cam2, cfg2, device, png, name_limit)
+    phase_batch("config2", sd2, camera_params(cam2, AREA_SIZE, AREA_SIZE, device), AREA_SIZE,
+                AREA_SIZE, *_frame_pixels(AREA_SIZE, AREA_SIZE, device), cfg2,
+                {"closest": 2 * (AREA_DEPTH - 1), "anyhit": AREA_DEPTH - 1,
+                 "anyhit_bounded": AREA_DEPTH - 1}, name_limit)
     phase_area_scene(device)
     scenes, frame4 = phase_configs(device, out_dir, name_limit)
     phase_golden(scenes, device)

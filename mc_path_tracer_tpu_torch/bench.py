@@ -23,7 +23,8 @@ counted by utils.profiling.rays_per_sample (12 at depth 5); with
 `--reuse` the traced count is 2 * depth - 1.  `vs_baseline` divides by
 bench.py's anchor of 100 Mrays/s.  Runs on the card only.  The blocks are
 bench.py's, not `integrator.render`'s: a forward frame renders in
-FRAME_CHUNK blocks (one at 1080p), which this timing does not see.
+FRAME_CHUNK blocks (one at 1080p, one sample a pass), which this timing
+does not see; each 65,536-pixel block here runs its samples in one pass.
 """
 
 from __future__ import annotations

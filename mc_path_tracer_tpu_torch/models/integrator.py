@@ -41,6 +41,12 @@ the JAX package's pixel by pixel.
 `render` draws sample s of a frame with key fold_in(key, s);
 `render_progressive` draws pass p's samples with fold_in(key, p) through
 `_tile_pass`, one film snapshot per (pass, tile), as the JAX package does.
+`render_tile_radiance` runs the pixels in blocks: PIXEL_CHUNK pixels and
+one sample a pass while autograd records a graph; otherwise FRAME_CHUNK
+pixels, whose (pixel, sample) pairs run in passes of at most FRAME_CHUNK
+sample-major lanes (32 samples a pass of a 256 x 256 frame, 1 of a 1080p
+one), each lane keyed by its pixel and sample, so the radiance is the
+same under any cut.
 
 Gradients (detached sampling): sampled directions, pdfs, MIS weights and
 intersections are detached (`stop_gradient` in the JAX package), so
@@ -65,12 +71,13 @@ sample meets the forward's hits, and per-ray results never change.
 
 The stages run in spans of utils/profiling, recorded only under a
 profiler session: `mcpt::render` (its own time: the frame's set-up),
-`mcpt::sample` per block and sample, `mcpt::camera`, `mcpt::trace`,
-`mcpt::bounce` per bounce (its own time: the shading glue),
-`mcpt::closest` / `mcpt::anyhit` per dispatch and `mcpt::film`; with an
-area light, `mcpt::area.sample` (the light sample on the emitters and its
-merge) and `mcpt::area.hit` (the BRDF ray's emitter hit and its merge)
-inside each bounce, beside its dispatches.  LAUNCHES["anyhit_bounded"]
+`mcpt::sample` per pass (ident: block, first sample, samples in the
+pass), `mcpt::camera`, `mcpt::trace`, `mcpt::bounce` per bounce (its own
+time: the shading glue), `mcpt::closest` / `mcpt::anyhit` per dispatch
+and `mcpt::film`; with an area light, `mcpt::area.sample` (the light
+sample on the emitters and its merge) and `mcpt::area.hit` (the BRDF
+ray's emitter hit and its merge) inside each bounce, beside its
+dispatches.  LAUNCHES["anyhit_bounded"]
 counts the any-hit dispatches that carry a t_max.
 """
 
@@ -109,8 +116,11 @@ RR_MIN_Q = 0.05
 DEFAULT_SPP = 250
 DEFAULT_MAX_DEPTH = 5
 PIXEL_CHUNK = 65536
-# a forward-only render's block: 32 PIXEL_CHUNK blocks, a whole 1080p frame
+# a forward-only render's block and its most lanes a pass: 32 PIXEL_CHUNK
+# blocks, a whole 1080p frame
 FRAME_CHUNK = 32 * PIXEL_CHUNK
+# the folds of a sample's key that key its camera streams
+JITTER_FOLD, LENS_FOLD = 1_000_003, 1_000_007
 # scenes at or below this triangle count skip the BVH on the card: the dense
 # kernel tests every triangle (the JAX package's _resolve_accel threshold)
 DENSE_ACCEL_MAX_TRIS = 2048
@@ -205,11 +215,15 @@ def _occluded(scene: SceneData, route: str, ro, rd, mask=None, t_max=None):
 
 
 @spanned("mcpt::trace")
-def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
-                   cfg: RenderConfig, pid=None) -> torch.Tensor:
+def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor | None,
+                   cfg: RenderConfig, pid=None, bounce_keys=None) -> torch.Tensor:
     """Path-trace one sample for each input ray; returns radiance [R, 3].
     `pid` keys each lane's random stream (pixel ids from the renderer);
-    it defaults to the array position."""
+    it defaults to the array position.  Bounce b draws with key
+    fold_in(key, b), folded on the host; or, for k samples over
+    sample-major lanes, with `bounce_keys[:, b - 1]`, where `bounce_keys`
+    ([k, max_depth - 1, 2] on the lanes' device, `_key_words`) holds those
+    folds of each sample's key and `key` is not read."""
     _check_supported(cfg)
     num_rays = ray_o.shape[0]
     if pid is None:
@@ -243,7 +257,8 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
     # next-event estimation at hits 1..max_depth-1
     for bounce in range(1, cfg.max_depth):
         with span("mcpt::bounce"):
-            u = rng.pixel_uniforms(rng.fold_in(key, bounce), pid, 10).detach()
+            bkey = rng.fold_in(key, bounce) if bounce_keys is None else bounce_keys[:, bounce - 1]
+            u = rng.pixel_uniforms(bkey, pid, 10).detach()
             pos = isect.position
             mat = scene.materials.gather(isect.material_id, isect.uv, atlas)
             n = scene.materials.perturb_normal(isect.material_id, isect.uv, atlas,
@@ -434,23 +449,51 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor,
     return l_out
 
 
-def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx, block=0):
-    """One sample for pixels (px, py); all randomness keyed by pixel id.
-    `block` (the block's index in its render_tile_radiance call) only names
-    the sample's span."""
-    with span("mcpt::sample", ident=(block, sample_idx)):
-        skey = rng.fold_in(key, sample_idx)
+def _key_words(key: torch.Tensor, cfg: RenderConfig, spp: int, device) -> torch.Tensor:
+    """The keys that samples 0..spp-1 draw from, as words on `device`:
+    [spp, 2 + (max_depth - 1), 2] int64, row s holding fold_in(skey, d) of
+    the sample key skey = fold_in(key, s) for d = JITTER_FOLD (zeros with
+    jitter off), LENS_FOLD and the bounces 1..max_depth-1.  The host
+    threefries of one-sample passes, sent to the device as one tensor."""
+    rows = []
+    for s in range(spp):
+        skey = rng.fold_in(key, s)
+        jitter = rng.fold_in(skey, JITTER_FOLD).tolist() if cfg.jitter else [0, 0]
+        rows.append([jitter, *(rng.fold_in(skey, d).tolist()
+                               for d in (LENS_FOLD, *range(1, cfg.max_depth)))])
+    return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
+def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx, block=0,
+                 words=None):
+    """Samples for pixels (px, py) [R]; all randomness keyed by pixel id.
+    Without `words`, the one sample `sample_idx`, its keys folded from
+    `key` on the host: radiance [R, 3].  With `words` (rows sample_idx..
+    of `_key_words`, [k, F, 2] on the device), the k samples sample_idx ..
+    sample_idx + k - 1 in one pass over sample-major lanes, lane j * R + i
+    pixel i's sample sample_idx + j: radiance [k * R, 3].  `block` (the
+    block's index in its render_tile_radiance call) only names the pass's
+    span, with its first sample and its sample count."""
+    k = 1 if words is None else words.shape[0]
+    with span("mcpt::sample", ident=(block, sample_idx, k)):
         pid = (py * width + px).to(torch.int32)
+        if words is None:
+            skey, bounce_keys = rng.fold_in(key, sample_idx), None
+        else:
+            px, py, pid = px.repeat(k), py.repeat(k), pid.repeat(k)
+            skey, bounce_keys = None, words[:, 2:]
         with span("mcpt::camera"):
             if cfg.jitter:
-                uj = rng.pixel_uniforms(rng.fold_in(skey, 1_000_003), pid, 2)
+                jkey = rng.fold_in(skey, JITTER_FOLD) if words is None else words[:, 0]
+                uj = rng.pixel_uniforms(jkey, pid, 2)
                 pxj = px + uj[..., 0] - 0.5
                 pyj = py + uj[..., 1] - 0.5
             else:
                 pxj, pyj = px, py
-            lens_u = rng.pixel_uniforms(rng.fold_in(skey, 1_000_007), pid, 2)
+            lkey = rng.fold_in(skey, LENS_FOLD) if words is None else words[:, 1]
+            lens_u = rng.pixel_uniforms(lkey, pid, 2)
             ro, rd = camera_mod.gen_camera_rays(camera, width, height, pxj, pyj, lens_u)
-        return trace_radiance(scene, ro, rd, skey, cfg, pid=pid)
+        return trace_radiance(scene, ro, rd, skey, cfg, pid=pid, bounce_keys=bounce_keys)
 
 
 def _requires_grad(*trees) -> bool:
@@ -472,35 +515,48 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     """Radiance summed over `spp` samples for pixels (px, py) [R] (f32
     pixel coordinates), [R, 3].  The pixels run in blocks, each through
     every sample before the next block starts, so live state stays bounded
-    by the block: PIXEL_CHUNK rays while autograd records a graph,
-    FRAME_CHUNK rays otherwise (a forward frame keeps no graph, and fewer,
-    larger blocks launch fewer kernels).  Each lane's path is its own and
-    its noise is keyed by pixel id, so the radiance does not depend on the
-    cut.  Under autograd each sample is replayed in the backward (module
-    docstring) unless `replay=False`, which keeps every sample's graph
-    alive until the backward instead.  `first` is px[0]'s index in a
-    longer pixel list that is rendered in parts (a shard's rows): blocks
-    are cut at multiples of the block size of that list, so each part runs
-    the whole list's blocks (one cut by a part's edge runs as two), and a
-    gradient summed over the parts adds the same per-block sums."""
+    by the block.  While autograd records a graph a block is PIXEL_CHUNK
+    pixels and runs one sample a pass.  Otherwise (a forward render keeps
+    no graph, and fewer, wider passes launch fewer kernels) a block is
+    FRAME_CHUNK pixels and its (pixel, sample) pairs run in passes of at
+    most FRAME_CHUNK lanes: a block of B pixels runs k = min(samples left,
+    FRAME_CHUNK // B), at least 1, samples a pass over k * B sample-major
+    lanes (1 for a 1080p frame, 32 for a 256 x 256 one), with the keys of
+    every sample sent to the device once per call (`_key_words`).  Each
+    pixel adds its samples in order, s = 0, 1, ..., and each lane's path
+    is its own, its noise keyed by pixel id and sample, so the radiance
+    does not depend on the cut.  Under autograd each sample is replayed in
+    the backward (module docstring) unless `replay=False`, which keeps
+    every sample's graph alive until the backward instead.  `first` is
+    px[0]'s index in a longer pixel list that is rendered in parts (a
+    shard's rows): blocks are cut at multiples of the block size of that
+    list, so each part runs the whole list's blocks (one cut by a part's
+    edge runs as two), and a gradient summed over the parts adds the same
+    per-block sums."""
     spp = cfg.spp if spp is None else spp
     records = torch.is_grad_enabled() and _requires_grad(scene, camera)
     replay = replay and records
     chunk = PIXEL_CHUNK if records else FRAME_CHUNK
     r = px.shape[0]
     cuts = sorted({0, *range(-first % chunk, r, chunk)}) + [r]
-    blocks = []
-    for b, (s0, s1) in enumerate(zip(cuts[:-1], cuts[1:])):
-        px_c, py_c = px[s0:s1], py[s0:s1]
-        acc = torch.zeros((px_c.shape[0], 3), dtype=torch.float32, device=px.device)
-        for s in range(spp):
-            args = (scene, cfg, camera, width, height, px_c, py_c, key, s, b)
+    words, blocks = None, []
+    for b, (c0, c1) in enumerate(zip(cuts[:-1], cuts[1:])):
+        px_c, py_c, size = px[c0:c1], py[c0:c1], c1 - c0
+        acc = torch.zeros((size, 3), dtype=torch.float32, device=px.device)
+        k = 1 if records else max(1, min(spp, chunk // max(size, 1)))
+        if k > 1 and words is None:
+            words = _key_words(key, cfg, spp, px.device)
+        for s in range(0, spp, k):
+            n = min(k, spp - s)
+            args = (scene, cfg, camera, width, height, px_c, py_c, key, s, b,
+                    None if k == 1 else words[s:s + n])
             if replay:
                 sample = checkpoint(_sample_pass, *args, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
                 sample = _sample_pass(*args)
-            acc = acc + sample
+            for j in range(n):
+                acc = acc + (sample if n == 1 else sample[j * size:(j + 1) * size])
         blocks.append(acc)
     return torch.cat(blocks, dim=0)
 

@@ -10,7 +10,11 @@ any device (per-lane streams), so a render on the card draws the same
 numbers as the JAX reference.
 
 A key is a [2] int64 tensor holding two uint32 words (JAX's raw key);
-`prng_key(s)` is `[0, s]`, like `jax.random.PRNGKey(s)`.
+`prng_key(s)` is `[0, s]`, like `jax.random.PRNGKey(s)`.  `fold_in` and
+`pixel_uniforms` also take keys as device words, [..., 2] int64: the
+threefry is elementwise, so such words broadcast against the counters (k
+samples' keys over sample-major lanes, derived on the host and sent to the
+device once).
 """
 
 from __future__ import annotations
@@ -48,7 +52,11 @@ def prng_key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & MASK], dtype=torch.int64)
 
 
-def _words(key: torch.Tensor) -> tuple[int, int]:
+def _words(key: torch.Tensor):
+    """A key's two words: Python ints of a [2] host key, or the [..., 2]
+    words of keys on a device as two [...] tensors."""
+    if key.dim() > 1:
+        return key[..., 0], key[..., 1]
     k1, k2 = key.tolist()
     return int(k1), int(k2)
 
@@ -56,13 +64,18 @@ def _words(key: torch.Tensor) -> tuple[int, int]:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """`jax.random.fold_in`: hash the counter pair (0, data) under key.
 
-    `data` is an int (returns a [2] key) or an integer tensor (returns one
-    key per element, [*data.shape, 2], on data's device)."""
+    `key` is a [2] key or [..., 2] key words, which broadcast against
+    `data`.  `data` is an int (returns a [2] key of a [2] key) or an integer
+    tensor (returns one key per element, [*broadcast shape, 2], on data's
+    device)."""
     k1, k2 = _words(key)
     if isinstance(data, torch.Tensor):
-        y1, y2 = threefry2x32(k1, k2, 0, data.to(torch.int64) & MASK)
+        data = data.to(torch.int64) & MASK
+    else:
+        data = int(data) & MASK
+    y1, y2 = threefry2x32(k1, k2, 0, data)
+    if isinstance(y1, torch.Tensor):
         return torch.stack([y1, y2], dim=-1)
-    y1, y2 = threefry2x32(k1, k2, 0, int(data) & MASK)
     return torch.tensor([y1, y2], dtype=torch.int64)
 
 
@@ -92,8 +105,15 @@ def uniforms(key: torch.Tensor, shape, n: int, device=DEFAULT_DEVICE) -> torch.T
 def pixel_uniforms(key: torch.Tensor, pid: torch.Tensor, n: int) -> torch.Tensor:
     """Per-pixel uniform streams: `n` variates per lane keyed by the lane's
     pixel id, so a pixel's noise does not depend on how the frame is cut
-    into blocks.  Shape [*pid.shape, n], on pid's device."""
-    keys = fold_in(key, pid)
+    into blocks.  `key` is a [2] key, or the [k, 2] key words of k samples
+    over sample-major lanes: pid [N] holds k runs of N / k lanes, run j
+    keyed by key[j] (words [k, 1] against pid viewed [k, N / k]).  Shape
+    [*pid.shape, n], on pid's device."""
+    if key.dim() > 1:
+        k = key.shape[0]
+        keys = fold_in(key[:, None], pid.view(k, pid.shape[0] // k)).view(*pid.shape, 2)
+    else:
+        keys = fold_in(key, pid)
     lo = torch.arange(n, dtype=torch.int64, device=pid.device)
     b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(lo), lo)
     return _bits_to_unit(b1 ^ b2)

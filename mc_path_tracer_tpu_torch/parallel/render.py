@@ -13,8 +13,9 @@ are enqueued in turn from one host thread, which makes every shard's
 launches, so the cards of one process share that thread's time: the
 route on which several cards work at once is one process per card
 (render_sharded_global under torchrun, as bench_scaling.py runs it).  A
-frame's shard cuts its own rows into forward blocks (FRAME_CHUNK); a
-train step's shards cut their rows on the whole frame's PIXEL_CHUNK
+frame's shard cuts its own rows into forward blocks (FRAME_CHUNK, whose
+samples share a pass's lanes: a four-card rank's 1080p rows run their
+4 samples in one pass); a train step's shards cut their rows on the whole frame's PIXEL_CHUNK
 block grid (render_tile_radiance's `first`), so that their gradients add
 the one-device step's per-block sums.
 

@@ -48,7 +48,8 @@ class SpanRecord(NamedTuple):
     """One closed span: edges in ns of time.time_ns(), the host thread
     (threading.get_native_id()), the index of the record open around it on
     that thread (-1: none), the LAUNCHES counters that moved while it was
-    open, and the caller's identifier (a sample's (block, sample))."""
+    open, and the caller's identifier (a sample pass's (block, first
+    sample, samples))."""
 
     name: str
     start_ns: int

@@ -157,8 +157,9 @@ def test_config2_render_matches_golden(one_thread):
     """The port's config2 at 16x16, 8 spp, depth 3, key 42 on the CPU
     against the JAX render stored in tests/golden/config2.npy; on CPU
     tensors every dispatch takes the plain version: 4 closest hits and 2
-    bounded any-hits per sample (LAUNCHES["anyhit_bounded"]), each over
-    lanes sorted by sort_rays."""
+    bounded any-hits per pass (LAUNCHES["anyhit_bounded"]), each over
+    lanes sorted by sort_rays, and the 8 samples of the frame's one block
+    run in one pass."""
     scene, cam, _, _ = tconfigs.config2_mis_area_light()
     before = dict(LAUNCHES)
     img = render(scene, cam, 16, 16, RenderConfig(spp=8, max_depth=3),
@@ -168,9 +169,9 @@ def test_config2_render_matches_golden(one_thread):
     close = np.isclose(img, want, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() >= 0.99, (close.mean(), np.abs(img - want).max())
     assert abs(img.mean() - want.mean()) <= 1e-4 * abs(want.mean())
-    assert LAUNCHES["plain"] - before["plain"] == 8 * 6
-    assert LAUNCHES["sort"] - before["sort"] == 8 * 6
-    assert LAUNCHES["anyhit_bounded"] - before["anyhit_bounded"] == 8 * 2
+    assert LAUNCHES["plain"] - before["plain"] == 1 * 6
+    assert LAUNCHES["sort"] - before["sort"] == 1 * 6
+    assert LAUNCHES["anyhit_bounded"] - before["anyhit_bounded"] == 1 * 2
     assert all(LAUNCHES[k] == before[k] for k in LAUNCHES
                if k not in ("plain", "sort", "anyhit_bounded"))
 

@@ -266,7 +266,9 @@ def test_replay_matches_no_replay():
 def test_render_is_the_same_with_grad_enabled():
     """render() of a scene whose albedo requires grad, under torch.no_grad
     and with grad enabled (then every sample is replayed in a backward): the
-    same image, the same plain calls, and a backward that reaches albedo."""
+    same image, the plain calls of one pass of both samples under no_grad
+    and of one pass a sample with grad (4 dispatches a pass), and a
+    backward that reaches albedo."""
     _, tsd, _, tcam = scenes("small_scene")
     leaves, sd = leaves_of(tsd)
     cfg = tint.RenderConfig(spp=2, max_depth=3)
@@ -277,7 +279,7 @@ def test_render_is_the_same_with_grad_enabled():
             films.append(tint.render(sd, tcam, W, H, cfg, key=trng.prng_key(KEY)))
         calls.append(LAUNCHES["plain"] - before)
     assert torch.equal(films[0].ld, films[1].ld.detach())
-    assert calls[0] == calls[1] == 8
+    assert calls == [4, 8]
     assert not films[0].ld.requires_grad and films[1].ld.requires_grad
     films[1].ld.sum().backward()
     assert leaves[0].grad is not None and leaves[0].grad.abs().sum() > 0

@@ -278,8 +278,9 @@ def test_sharded_step_gradients_on_2_and_4_shards(port, target, steps, shards):
 def test_shard_launch_counts_are_exact(port, monkeypatch):
     """4 shards of the frame run in turn on the caller's thread: each
     shard's plain calls read around its call are its own (one closest and
-    one fused any-hit dispatch per sample, each over sorted lanes: one
-    sort_perm call per dispatch), and add up to the frame's."""
+    one fused any-hit dispatch per pass, both samples of a shard's 64
+    pixels in one pass, each over sorted lanes: one sort_perm call per
+    dispatch), and add up to the frame's."""
     sd, cam = port
     cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
     inner, threads = tpar.render_tile_radiance, []
@@ -292,8 +293,8 @@ def test_shard_launch_counts_are_exact(port, monkeypatch):
     before = LAUNCHES["plain"]
     _, shards = shard_launches(lambda: tpar.render_sharded(
         sd, cam, W, H, cfg, key=trng.prng_key(0), mesh=cpu_mesh(4)))
-    assert LAUNCHES["plain"] - before == 4 * 2 * SPP
-    assert [got["plain"] for got in shards] == [2 * SPP] * 4
+    assert LAUNCHES["plain"] - before == 4 * 2 * 1
+    assert [got["plain"] for got in shards] == [2 * 1] * 4
     assert all(got["sort"] == got["plain"] and sum(got.values()) == 2 * got["plain"]
                for got in shards)
     assert threads == [threading.get_ident()] * 4
@@ -369,18 +370,20 @@ def test_init_distributed_reads_one_process_torchrun_environment(monkeypatch):
 
 def test_shard_blocks_follow_the_frame_grid(port, target, steps, monkeypatch):
     """With 40-pixel blocks under autograd, 120-pixel forward blocks and 4
-    shards of 64 pixels, a frame (3 blocks) has each shard cut blocks from
-    its own first row (1 each), while a train step's shard cuts 40-pixel
-    blocks on the frame's grid (render_tile_radiance's `first`: 2, 3, 2,
-    3), so that every block of the one-device step (7) runs whole or in two
-    parts; frames bit-equal, gradients within 1e-5 of the largest."""
+    shards of 64 pixels, a frame (3 blocks: 120 and 120 pixels at one
+    sample a pass, 16 at both samples in one pass) has each shard cut
+    blocks from its own first row (1 each, one sample a pass), while a
+    train step's shard cuts 40-pixel blocks on the frame's grid
+    (render_tile_radiance's `first`: 2, 3, 2, 3), so that every block of
+    the one-device step (7) runs whole or in two parts; frames bit-equal,
+    gradients within 1e-5 of the largest."""
     sd, cam = port
     cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
     monkeypatch.setattr(tint, "PIXEL_CHUNK", 40)
     monkeypatch.setattr(tint, "FRAME_CHUNK", 120)
     before = LAUNCHES["plain"]
     single = tint.render(sd, cam, W, H, cfg, key=trng.prng_key(0))
-    assert LAUNCHES["plain"] - before == 3 * 2 * SPP
+    assert LAUNCHES["plain"] - before == (2 + 2 + 1) * 2
     frame, shards = shard_launches(lambda: tpar.render_sharded(
         sd, cam, W, H, cfg, key=trng.prng_key(0), mesh=cpu_mesh(4)))
     assert [got["plain"] for got in shards] == [1 * 2 * SPP] * 4
@@ -391,10 +394,11 @@ def test_shard_blocks_follow_the_frame_grid(port, target, steps, monkeypatch):
     assert largest_gap([g.numpy() for g in grads], [g.numpy() for g in grads1]) <= \
         SHARD_GRAD_TOL
     # 100 pixels whose first is pixel 40 of the list, 96-pixel forward
-    # blocks: a cut at 56
+    # blocks: a cut at 56; the 56-pixel block runs a sample a pass, the
+    # 44-pixel block both samples in one
     monkeypatch.setattr(tint, "PIXEL_CHUNK", 48)
     monkeypatch.setattr(tint, "FRAME_CHUNK", 96)
     px, py = (torch.from_numpy(v[:100]) for v in pixels())
     before = LAUNCHES["plain"]
     tint.render_tile_radiance(sd, cam, W, H, px, py, trng.prng_key(0), cfg, first=40)
-    assert LAUNCHES["plain"] - before == 2 * 2 * SPP
+    assert LAUNCHES["plain"] - before == (2 + 1) * 2

@@ -107,8 +107,9 @@ def test_sorted_anyhit_is_bit_equal(scene, bounded):
 
 
 def test_render_with_and_without_sort_is_bit_equal():
-    """A 24x16 render at 2 spp and depth 4: one sort per traversal
-    dispatch with sort_rays, none without, the same frame bit for bit."""
+    """A 24x16 render at 2 spp and depth 4 (both samples in one pass): one
+    sort per traversal dispatch with sort_rays, none without, the same
+    frame bit for bit."""
     sd = small_scene(TScene).build(device="cpu")
     films, sorts = {}, {}
     for sort in (True, False):
@@ -117,7 +118,7 @@ def test_render_with_and_without_sort_is_bit_equal():
                                   tint.RenderConfig(spp=2, max_depth=4, sort_rays=sort),
                                   key=trng.prng_key(5), device="cpu")
         sorts[sort] = LAUNCHES["sort"] - before["sort"], LAUNCHES["plain"] - before["plain"]
-    assert sorts[True] == (2 * 6, 2 * 6) and sorts[False] == (0, 2 * 6)
+    assert sorts[True] == (1 * 6, 1 * 6) and sorts[False] == (0, 1 * 6)
     assert films[True].ld.abs().sum() > 0
     assert torch.equal(films[True].ld, films[False].ld)
     assert torch.equal(films[True].samples, films[False].samples)

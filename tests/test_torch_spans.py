@@ -134,8 +134,9 @@ def test_spans_nest_with_self_time_and_launches():
     """A traced 16x8 render with sort_rays on: each span's parent is the
     span open around it (render > sample > camera, trace > closest / bounce
     > closest, anyhit > sort, finish_closest), self time is the duration
-    less the children's, the samples carry (block, sample), and each
-    span's launches are the LAUNCHES counters that moved inside it."""
+    less the children's, the one sample pass (both samples of the frame's
+    one block) carries (block, first sample, samples), and each span's
+    launches are the LAUNCHES counters that moved inside it."""
     sd = scene().build("cpu")
     cfg = tint.RenderConfig(spp=2, max_depth=3, sort_rays=True)
     before = len(GLOBAL_TIMINGS.records())
@@ -146,11 +147,11 @@ def test_spans_nest_with_self_time_and_launches():
     names = [r.name for r in recs.values()]
     assert names.count("mcpt::render") == names.count("mcpt::film") == 1
     assert names.count("mcpt::tonemap") == 1
-    assert names.count("mcpt::sample") == names.count("mcpt::camera") == 2
-    # per sample at depth 3: 2 closest (primary, extension) and 2 fused any-hits
-    assert names.count("mcpt::closest") == names.count("mcpt::anyhit") == 4
-    assert names.count("mcpt::bounce") == 4
-    assert names.count("mcpt::sort") == 8 and names.count("mcpt::finish_closest") == 4
+    assert names.count("mcpt::sample") == names.count("mcpt::camera") == 1
+    # per pass at depth 3: 2 closest (primary, extension) and 2 fused any-hits
+    assert names.count("mcpt::closest") == names.count("mcpt::anyhit") == 2
+    assert names.count("mcpt::bounce") == 2
+    assert names.count("mcpt::sort") == 4 and names.count("mcpt::finish_closest") == 2
     want_parent = {"mcpt::sample": "mcpt::render", "mcpt::film": "mcpt::render",
                    "mcpt::camera": "mcpt::sample", "mcpt::trace": "mcpt::sample",
                    "mcpt::bounce": "mcpt::trace", "mcpt::anyhit": "mcpt::bounce",
@@ -167,7 +168,7 @@ def test_spans_nest_with_self_time_and_launches():
         want = want_parent[r.name]
         assert parent.name in (want if isinstance(want, tuple) else (want,)), (r, parent)
         assert parent.start_ns <= r.start_ns and r.end_ns <= parent.end_ns
-    assert sorted(r.ident for r in recs.values() if r.name == "mcpt::sample") == [(0, 0), (0, 1)]
+    assert [r.ident for r in recs.values() if r.name == "mcpt::sample"] == [(0, 0, 2)]
     # self time: the duration less the children's intervals
     spans = stages.clipped(GLOBAL_TIMINGS.records(), 0, 2**63 - 1)
     own = stages.self_ns(spans)
@@ -176,8 +177,8 @@ def test_spans_nest_with_self_time_and_launches():
         assert own[i] == (r.end_ns - r.start_ns) - kids
     # launches moved inside each span
     render = next(r for r in recs.values() if r.name == "mcpt::render")
-    assert render.launches == {"plain": 8, "sort": 8}
-    assert LAUNCHES["plain"] - plain0 == 9 and LAUNCHES["sort"] - sort0 == 8  # + the tone map
+    assert render.launches == {"plain": 4, "sort": 4}
+    assert LAUNCHES["plain"] - plain0 == 5 and LAUNCHES["sort"] - sort0 == 4  # + the tone map
     for r in recs.values():
         if r.name in ("mcpt::closest", "mcpt::anyhit"):
             assert r.launches == {"plain": 1, "sort": 1}

@@ -9,7 +9,11 @@ For each stage name: spans, wall (the union of its spans), self time (less
 the spans inside it), the kernel launches its outermost spans counted
 (ops.kernels.LAUNCHES) and the device-busy seconds during its spans, each
 per unit of the cell's work (frame, step or preview frame), and the share
-of the window's wall that the main thread's spans cover.  Prints the
+of the window's wall that the main thread's spans cover.  For
+`mcpt::sample`, one span a sample pass, it also gives the samples per span
+(the third element of the span's ident: block, first sample, samples), so
+spans per unit and samples per span say how far forward blocks batch
+their samples.  Prints the
 table, then the run's result line as run.py prints it (on the CPU, with
 --device cpu and a --root holding a small configuration, only `correct`
 and the per-layer metrics); `--out` also writes both as JSON.  On several
@@ -38,8 +42,9 @@ from benchmark.harness.driver import Context, log  # noqa: E402
 
 def stage_table(events, recs, lo: int, hi: int) -> list[dict]:
     """Per `mcpt::` stage name in [lo, hi]: spans, wall, self time,
-    launches of its outermost spans of that name and device-busy seconds
-    during its spans, the largest wall first."""
+    launches of its outermost spans of that name, device-busy seconds
+    during its spans and, for sample passes, their samples, the largest
+    wall first."""
     spans = stages.clipped(recs, lo, hi)
     own = stages.self_ns(spans)
     busy = stages.merged((max(e.start_ns, lo), min(e.end_ns, hi))
@@ -49,6 +54,8 @@ def stage_table(events, recs, lo: int, hi: int) -> list[dict]:
         row = rows.setdefault(r.name, {"stage": r.name, "spans": 0, "self_s": 0.0,
                                        "launches": defaultdict(int)})
         row["spans"] += 1
+        if r.name == "mcpt::sample":
+            row["samples"] = row.get("samples", 0) + r.ident[2]
         row["self_s"] += own[i] / 1e9
         intervals[r.name].append((s, e))
         outer = spans.get(r.parent)
@@ -101,8 +108,10 @@ def main(argv=None) -> int:
         f"{'busy s/u':>9s}  launches/u")
     for row in table:
         launches = {k: v / units for k, v in row["launches"].items()}
+        batch = f"; {row['samples'] / row['spans']:.2f} samples/span" if "samples" in row else ""
         log(f"{row['stage']:24s} {row['spans'] / units:8.1f} {row['wall_s'] / units:9.4f} "
-            f"{row['self_s'] / units:9.4f} {row['device_busy_s'] / units:9.4f}  {launches}")
+            f"{row['self_s'] / units:9.4f} {row['device_busy_s'] / units:9.4f}  {launches}"
+            f"{batch}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
