@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--png PATH]
+    python3 chip_smoke.py [--png PATH] [--parent DIR]
 
 Builds the three CUDA sources of csrc/ (one nvcc each, in parallel), then
 drives the port's paths and holds every kernel against its plain PyTorch
@@ -99,6 +99,15 @@ fails unless each dispatch went through the expected kernel:
                     gradients within 1e-5 of [grad]'s; whether gloo takes
                     CUDA tensors; then one NCCL rank (world size 1): its
                     step bit-equal to the one-device step
+  [keys]            with --parent DIR (a tree unpacked from `git archive` of
+                    the commit to compare with, under the repo, e.g. out/):
+                    the 1080p bench frame at 4 spp and one config4 train
+                    step, each run by this script's keys_worker in a
+                    process of its own, once with DIR's package and once
+                    with this tree's: radiance, uint8 pixels, loss and
+                    gradients bit-equal; per call, the profiled
+                    kernel launches, host-to-device copies and stream
+                    synchronisations of both sides
   [bench]           the benchmark (mc_path_tracer_tpu_torch.bench) in
                     --strided mode through bench.run: its JSON line, with
                     bench.py's keys and the card, block times and host CPUs
@@ -2526,6 +2535,109 @@ def phase_sharded_step(steps: dict, device, name_limit) -> dict:
             **{f"sharded_step_shard{i}": got for i, got in enumerate(shards)}}
 
 
+def _host_calls(fn):
+    """fn() once to warm up, then once under torch.profiler: (the second
+    call's result, its kernel launches (cudaLaunchKernel and
+    cuLaunchKernel), cudaMemcpyAsync calls, the device's host-to-device
+    copy rows and cudaStreamSynchronize calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = {e.key: e.count for e in prof.key_averages()}
+    return out, {"launches": rows.get("cudaLaunchKernel", 0) + rows.get("cuLaunchKernel", 0),
+                 "copies": rows.get("cudaMemcpyAsync", 0),
+                 "htod": sum(n for k, n in rows.items() if k.startswith("Memcpy HtoD")),
+                 "syncs": rows.get("cudaStreamSynchronize", 0)}
+
+
+def keys_worker(out: str, device="cuda:0") -> int:
+    """One side of [keys], run with the package under test first on the
+    path: the bench frame (key 0) and config4's replayed train step (key
+    0, mid-grey target), each called twice, the second under
+    torch.profiler (_host_calls).  Saves the radiance, uint8 pixels, loss,
+    gradients and both calls' counts to `out` (npz)."""
+    import mc_path_tracer_tpu_torch
+    from mc_path_tracer_tpu_torch import configs, make_train_step
+    from mc_path_tracer_tpu_torch.models.integrator import RenderConfig, camera_params, render
+    from mc_path_tracer_tpu_torch.ops import rng
+
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = build_bench_scene().build(device)
+    cfg = RenderConfig(spp=SPP, max_depth=DEPTH)
+    film, frame_counts = _host_calls(lambda: render(
+        sd, bench_camera(), WIDTH, HEIGHT, cfg, key=rng.prng_key(0), device=device))
+    scene4, cam4, cfg4, (w4, h4) = configs.config4_roughness_sweep()
+    sd4 = scene4.build(device)
+    px, py = _frame_pixels(w4, h4, device)
+    params = camera_params(cam4, w4, h4, device)
+    target = torch.full((w4 * h4, 3), GRAD_TARGET, device=device)
+    step = make_train_step(cfg4, w4, h4, cfg4.spp)
+    (loss, (mat, ls, tex)), step_counts = _host_calls(
+        lambda: step(sd4, params, px, py, target, rng.prng_key(0)))
+    counts = {"frame": frame_counts, "step": step_counts}
+    print(f"package {mc_path_tracer_tpu_torch.__file__}: per call {counts}", flush=True)
+    np.savez(out, radiance=film.ld.cpu().numpy(), u8=film.to_uint8(), loss=loss.cpu().numpy(),
+             counts=json.dumps(counts),
+             **{f"g{i}": g.cpu().numpy() for i, g in enumerate([*mat, ls, tex])})
+    return 0
+
+
+def _differing_bits(a: np.ndarray, b: np.ndarray) -> int:
+    """Elements of two equal-shaped arrays whose bytes differ."""
+    a, b = (np.atleast_1d(x).view(np.uint8).reshape(x.size, x.itemsize) for x in (a, b))
+    return int((a != b).any(axis=1).sum())
+
+
+def phase_keys(parent: Path | None, name_limit) -> None:
+    """keys_worker with `parent`'s package and with this tree's, one
+    process each: radiance, uint8 pixels, loss and gradients must be
+    bit-equal; each call's launches, copies and stream synchronisations
+    are logged side by side.  Where one side derives its keys on the host
+    and sends them once per call and the other folds them on the host per
+    pass, the host-to-device copies and synchronisations differ by at most
+    one a call and the launches by at most 1% (a replayed one-sample
+    pass's slice adds a fill and a device-to-device copy to its
+    backward)."""
+    if parent is None:
+        log("[keys] skipped: no --parent tree to compare with")
+        return
+    here = Path(__file__).resolve().parent
+    sides = {}
+    with tempfile.TemporaryDirectory(prefix="keys_") as tmp:
+        for label, root in (("parent", parent.resolve()), ("change", here)):
+            out = Path(tmp) / f"{label}.npz"
+            env = dict(os.environ, PYTHONSAFEPATH="1",
+                       PYTHONPATH=os.pathsep.join(filter(None, (str(root),
+                                                                os.environ.get("PYTHONPATH")))))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(here / "chip_smoke.py"), "--keys-worker",
+                                   str(out)], env=env, capture_output=True, text=True,
+                                  timeout=WORKER_TIMEOUT)
+            for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
+                log(f"[keys] {label}: {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"[keys] the {label} side failed: exit {proc.returncode}")
+            with np.load(out, allow_pickle=False) as got:
+                sides[label] = dict(got, counts=json.loads(str(got["counts"])))
+            log(f"[keys] {label} ({root}): {time.perf_counter() - t0:.1f} s")
+    a, b = sides["parent"], sides["change"]
+    names = ["radiance", "u8", "loss", *(f"g{i}" for i in range(len(GRAD_NAMES)))]
+    differing = {n: _differing_bits(a[n], b[n]) for n in names}
+    log(f"[keys] differing elements, parent vs change: {differing} ({name_limit})")
+    for call in ("frame", "step"):
+        pc, cc = a["counts"][call], b["counts"][call]
+        log(f"[keys] {call}: parent {pc}, change {cc}, change - parent "
+            f"{ {k: cc[k] - pc[k] for k in pc} }")
+        if not (0 <= cc["htod"] - pc["htod"] <= 1 and 0 <= cc["syncs"] - pc["syncs"] <= 1
+                and abs(cc["launches"] - pc["launches"]) <= 0.01 * pc["launches"]):
+            raise AssertionError(f"[keys] {call}: the host's calls moved beyond the key copy")
+    if any(differing.values()):
+        raise AssertionError("[keys] the change's frame or step differs from the parent's")
+
+
 def _free_port() -> int:
     import socket
 
@@ -3000,9 +3112,16 @@ def main() -> int:
     parser.add_argument("--png", default="out/config2.png",
                         help="config2's frames go to <stem>_auto.png and <stem>_dense.png; "
                         "the other phases write their PNGs and the test GLB beside them")
+    parser.add_argument("--parent", type=Path,
+                        help="a tree of the commit to compare with, for [keys]")
+    parser.add_argument("--keys-worker", metavar="OUT",
+                        help="run one side of [keys] (the script starts these itself)")
     parser.add_argument("--worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "OUT"),
                         help="run one rank of [multiprocess] (the script starts these itself)")
     args = parser.parse_args()
+    if args.keys_worker:
+        phase_device()
+        return keys_worker(args.keys_worker)
     if args.worker:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -3056,6 +3175,7 @@ def main() -> int:
     new_paths["multiprocess"] = phase_multiprocess(frame4, steps, out_dir, name_limit)
     phase_nccl(steps, device, name_limit)
     del scenes, sd2, steps, frame4
+    phase_keys(args.parent, name_limit)
     phase_bench(name_limit)
     phase_preview(device, out_dir, name_limit)
     phase_matpreview(device, out_dir, name_limit)

@@ -46,7 +46,9 @@ one sample a pass while autograd records a graph; otherwise FRAME_CHUNK
 pixels, whose (pixel, sample) pairs run in passes of at most FRAME_CHUNK
 sample-major lanes (32 samples a pass of a 256 x 256 frame, 1 of a 1080p
 one), each lane keyed by its pixel and sample, so the radiance is the
-same under any cut.
+same under any cut.  A call derives every sample's keys on the host once
+(`_key_words`) and sends them to the device as one tensor of words; every
+pass, and every replay of a pass, reads its samples' rows of it.
 
 Gradients (detached sampling): sampled directions, pdfs, MIS weights and
 intersections are detached (`stop_gradient` in the JAX package), so
@@ -219,15 +221,19 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor | None,
                    cfg: RenderConfig, pid=None, bounce_keys=None) -> torch.Tensor:
     """Path-trace one sample for each input ray; returns radiance [R, 3].
     `pid` keys each lane's random stream (pixel ids from the renderer);
-    it defaults to the array position.  Bounce b draws with key
-    fold_in(key, b), folded on the host; or, for k samples over
-    sample-major lanes, with `bounce_keys[:, b - 1]`, where `bounce_keys`
-    ([k, max_depth - 1, 2] on the lanes' device, `_key_words`) holds those
-    folds of each sample's key and `key` is not read."""
+    it defaults to the array position.  Bounce b of sample j draws with
+    the words `bounce_keys[j, b - 1]` ([k, max_depth - 1, 2] on the
+    lanes' device, rows of `_key_words`: fold_in(skey, b) of each sample
+    key skey, k samples over sample-major lanes).  Without them, the one
+    sample's key is `key`, whose bounce folds are made on the host and
+    sent to the device once, at entry."""
     _check_supported(cfg)
     num_rays = ray_o.shape[0]
     if pid is None:
         pid = torch.arange(num_rays, dtype=torch.int32, device=ray_o.device)
+    if bounce_keys is None:
+        bounce_keys = torch.tensor(_folds(key, range(1, cfg.max_depth)), dtype=torch.int64,
+                                   device=ray_o.device).view(1, cfg.max_depth - 1, 2)
     quirks = cfg.reference_quirks
     reuse = cfg.reuse_brdf_ray and not quirks
     route = dispatch_route(scene.tris.num_triangles, ray_o.device, cfg.accel, cfg.sort_rays)
@@ -257,8 +263,7 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor | None,
     # next-event estimation at hits 1..max_depth-1
     for bounce in range(1, cfg.max_depth):
         with span("mcpt::bounce"):
-            bkey = rng.fold_in(key, bounce) if bounce_keys is None else bounce_keys[:, bounce - 1]
-            u = rng.pixel_uniforms(bkey, pid, 10).detach()
+            u = rng.pixel_uniforms(bounce_keys[:, bounce - 1], pid, 10).detach()
             pos = isect.position
             mat = scene.materials.gather(isect.material_id, isect.uv, atlas)
             n = scene.materials.perturb_normal(isect.material_id, isect.uv, atlas,
@@ -449,51 +454,51 @@ def trace_radiance(scene: SceneData, ray_o, ray_d, key: torch.Tensor | None,
     return l_out
 
 
+def _folds(key: torch.Tensor, folds) -> list:
+    """fold_in(key, d) for each d in `folds`, as [two ints] rows: the
+    host's threefry, ready for one tensor of key words."""
+    return [rng.fold_in(key, d).tolist() for d in folds]
+
+
 def _key_words(key: torch.Tensor, cfg: RenderConfig, spp: int, device) -> torch.Tensor:
     """The keys that samples 0..spp-1 draw from, as words on `device`:
     [spp, 2 + (max_depth - 1), 2] int64, row s holding fold_in(skey, d) of
     the sample key skey = fold_in(key, s) for d = JITTER_FOLD (zeros with
-    jitter off), LENS_FOLD and the bounces 1..max_depth-1.  The host
-    threefries of one-sample passes, sent to the device as one tensor."""
+    jitter off), LENS_FOLD and the bounces 1..max_depth-1.  Derived on the
+    host once per render_tile_radiance call and sent to the device as one
+    tensor, which every pass of the call reads."""
     rows = []
     for s in range(spp):
         skey = rng.fold_in(key, s)
-        jitter = rng.fold_in(skey, JITTER_FOLD).tolist() if cfg.jitter else [0, 0]
-        rows.append([jitter, *(rng.fold_in(skey, d).tolist()
-                               for d in (LENS_FOLD, *range(1, cfg.max_depth)))])
+        jitter = _folds(skey, [JITTER_FOLD]) if cfg.jitter else [[0, 0]]
+        rows.append(jitter + _folds(skey, (LENS_FOLD, *range(1, cfg.max_depth))))
     return torch.tensor(rows, dtype=torch.int64).to(device)
 
 
-def _sample_pass(scene, cfg, camera, width, height, px, py, key, sample_idx, block=0,
-                 words=None):
-    """Samples for pixels (px, py) [R]; all randomness keyed by pixel id.
-    Without `words`, the one sample `sample_idx`, its keys folded from
-    `key` on the host: radiance [R, 3].  With `words` (rows sample_idx..
-    of `_key_words`, [k, F, 2] on the device), the k samples sample_idx ..
-    sample_idx + k - 1 in one pass over sample-major lanes, lane j * R + i
-    pixel i's sample sample_idx + j: radiance [k * R, 3].  `block` (the
+def _sample_pass(scene, cfg, camera, width, height, px, py, words, sample_idx, block=0):
+    """The k samples sample_idx .. sample_idx + k - 1 of pixels (px, py)
+    [R] in one pass over sample-major lanes, lane j * R + i pixel i's
+    sample sample_idx + j: radiance [k * R, 3].  `words` are those
+    samples' rows of `_key_words`, [k, F, 2] on the lanes' device: the
+    jitter key words[:, 0], the lens key words[:, 1] and the bounce keys
+    words[:, 2:], each read per lane with its pixel id.  `block` (the
     block's index in its render_tile_radiance call) only names the pass's
     span, with its first sample and its sample count."""
-    k = 1 if words is None else words.shape[0]
+    k = words.shape[0]
     with span("mcpt::sample", ident=(block, sample_idx, k)):
         pid = (py * width + px).to(torch.int32)
-        if words is None:
-            skey, bounce_keys = rng.fold_in(key, sample_idx), None
-        else:
-            px, py, pid = px.repeat(k), py.repeat(k), pid.repeat(k)
-            skey, bounce_keys = None, words[:, 2:]
+        # k runs of the pixels; a view at k = 1
+        px, py, pid = (v.expand(k, -1).reshape(-1) for v in (px, py, pid))
         with span("mcpt::camera"):
             if cfg.jitter:
-                jkey = rng.fold_in(skey, JITTER_FOLD) if words is None else words[:, 0]
-                uj = rng.pixel_uniforms(jkey, pid, 2)
+                uj = rng.pixel_uniforms(words[:, 0], pid, 2)
                 pxj = px + uj[..., 0] - 0.5
                 pyj = py + uj[..., 1] - 0.5
             else:
                 pxj, pyj = px, py
-            lkey = rng.fold_in(skey, LENS_FOLD) if words is None else words[:, 1]
-            lens_u = rng.pixel_uniforms(lkey, pid, 2)
+            lens_u = rng.pixel_uniforms(words[:, 1], pid, 2)
             ro, rd = camera_mod.gen_camera_rays(camera, width, height, pxj, pyj, lens_u)
-        return trace_radiance(scene, ro, rd, skey, cfg, pid=pid, bounce_keys=bounce_keys)
+        return trace_radiance(scene, ro, rd, None, cfg, pid=pid, bounce_keys=words[:, 2:])
 
 
 def _requires_grad(*trees) -> bool:
@@ -521,8 +526,9 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     FRAME_CHUNK pixels and its (pixel, sample) pairs run in passes of at
     most FRAME_CHUNK lanes: a block of B pixels runs k = min(samples left,
     FRAME_CHUNK // B), at least 1, samples a pass over k * B sample-major
-    lanes (1 for a 1080p frame, 32 for a 256 x 256 one), with the keys of
-    every sample sent to the device once per call (`_key_words`).  Each
+    lanes (1 for a 1080p frame, 32 for a 256 x 256 one).  Every sample's
+    keys are derived on the host and sent to the device once per call
+    (`_key_words`); each pass, and its replay, reads its rows.  Each
     pixel adds its samples in order, s = 0, 1, ..., and each lane's path
     is its own, its noise keyed by pixel id and sample, so the radiance
     does not depend on the cut.  Under autograd each sample is replayed in
@@ -539,24 +545,22 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     chunk = PIXEL_CHUNK if records else FRAME_CHUNK
     r = px.shape[0]
     cuts = sorted({0, *range(-first % chunk, r, chunk)}) + [r]
-    words, blocks = None, []
+    words = _key_words(key, cfg, spp, px.device)
+    blocks = []
     for b, (c0, c1) in enumerate(zip(cuts[:-1], cuts[1:])):
         px_c, py_c, size = px[c0:c1], py[c0:c1], c1 - c0
         acc = torch.zeros((size, 3), dtype=torch.float32, device=px.device)
         k = 1 if records else max(1, min(spp, chunk // max(size, 1)))
-        if k > 1 and words is None:
-            words = _key_words(key, cfg, spp, px.device)
         for s in range(0, spp, k):
             n = min(k, spp - s)
-            args = (scene, cfg, camera, width, height, px_c, py_c, key, s, b,
-                    None if k == 1 else words[s:s + n])
+            args = (scene, cfg, camera, width, height, px_c, py_c, words[s:s + n], s, b)
             if replay:
                 sample = checkpoint(_sample_pass, *args, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
                 sample = _sample_pass(*args)
             for j in range(n):
-                acc = acc + (sample if n == 1 else sample[j * size:(j + 1) * size])
+                acc = acc + sample[j * size:(j + 1) * size]
         blocks.append(acc)
     return torch.cat(blocks, dim=0)
 

@@ -249,15 +249,16 @@ def _preview_chunk(scene: SceneData, route: str, ro, rd, mode: str) -> torch.Ten
 
 
 @spanned("mcpt::preview.chunk")
-def _debug_chunk(scene: SceneData, route: str, ro, rd, pid) -> torch.Tensor:
-    """One chunk of the debug view, [R, 3]."""
+def _debug_chunk(scene: SceneData, route: str, ro, rd, pid, key) -> torch.Tensor:
+    """One chunk of the debug view, [R, 3]; `key` is the light sample's
+    key words, on pid's device."""
     hit = _intersect(scene, route, ro, rd)
     mat = scene.materials.gather(hit.material_id, hit.uv, scene.atlas)
     lights = lights_mod.with_packed(scene.lights)
     n_l = lights_mod.num_lights(lights)
 
     # deterministic light sample per pixel (pixel-keyed stream, key 0)
-    u = rng.pixel_uniforms(rng.prng_key(0), pid, 3)
+    u = rng.pixel_uniforms(key, pid, 3)
     l_id = torch.clamp((u[:, 0] * n_l).to(torch.int64), max=n_l - 1)
     wl = lights_mod.sample_dir(lights, l_id, u[:, 1:3])
     li = lights_mod.radiance(lights, l_id, wl)
@@ -288,6 +289,8 @@ def preview_pixels(scene: SceneData, cam, width: int, height: int, px, py, mode:
     these pixels.  `accel` picks the intersection route, as
     RenderConfig.accel does."""
     route = dispatch_route(scene.tris.num_triangles, px.device, accel, sort_rays=True)
+    # the debug view's light-sample key, sent to the device once a frame
+    debug_key = rng.prng_key(0).to(px.device) if mode == "debug" else None
     chunks = []
     for s0 in range(0, px.shape[0], PIXEL_CHUNK):
         px_c, py_c = px[s0 : s0 + PIXEL_CHUNK], py[s0 : s0 + PIXEL_CHUNK]
@@ -296,7 +299,7 @@ def preview_pixels(scene: SceneData, cam, width: int, height: int, px, py, mode:
             torch.zeros((px_c.shape[0], 2), dtype=torch.float32, device=px.device))
         if mode == "debug":
             pid = (py_c * width + px_c).to(torch.int32)
-            chunks.append(_debug_chunk(scene, route, ro, rd, pid))
+            chunks.append(_debug_chunk(scene, route, ro, rd, pid, debug_key))
         else:
             chunks.append(_preview_chunk(scene, route, ro, rd, mode))
     out = torch.cat(chunks, dim=0)

@@ -10,11 +10,11 @@ any device (per-lane streams), so a render on the card draws the same
 numbers as the JAX reference.
 
 A key is a [2] int64 tensor holding two uint32 words (JAX's raw key);
-`prng_key(s)` is `[0, s]`, like `jax.random.PRNGKey(s)`.  `fold_in` and
-`pixel_uniforms` also take keys as device words, [..., 2] int64: the
-threefry is elementwise, so such words broadcast against the counters (k
-samples' keys over sample-major lanes, derived on the host and sent to the
-device once).
+`prng_key(s)` is `[0, s]`, like `jax.random.PRNGKey(s)`.  Keys are derived
+on the host (`fold_in` of a [2] key by an int, on Python ints) and sent to
+the device once, as [k, 2] words; `pixel_uniforms` reads those words there,
+the threefry being elementwise, so k samples' words broadcast against
+their runs of sample-major lanes.
 """
 
 from __future__ import annotations
@@ -105,15 +105,13 @@ def uniforms(key: torch.Tensor, shape, n: int, device=DEFAULT_DEVICE) -> torch.T
 def pixel_uniforms(key: torch.Tensor, pid: torch.Tensor, n: int) -> torch.Tensor:
     """Per-pixel uniform streams: `n` variates per lane keyed by the lane's
     pixel id, so a pixel's noise does not depend on how the frame is cut
-    into blocks.  `key` is a [2] key, or the [k, 2] key words of k samples
-    over sample-major lanes: pid [N] holds k runs of N / k lanes, run j
-    keyed by key[j] (words [k, 1] against pid viewed [k, N / k]).  Shape
+    into blocks.  `key` holds k samples' key words, [k, 2] (a [2] key is k
+    = 1), over sample-major lanes: pid's N lanes are k runs of N / k, run j
+    keyed by key[j].  Words not on pid's device are copied there.  Shape
     [*pid.shape, n], on pid's device."""
-    if key.dim() > 1:
-        k = key.shape[0]
-        keys = fold_in(key[:, None], pid.view(k, pid.shape[0] // k)).view(*pid.shape, 2)
-    else:
-        keys = fold_in(key, pid)
+    words = key.view(-1, 2).to(pid.device)
+    k = words.shape[0]
+    keys = fold_in(words[:, None], pid.view(k, pid.numel() // k)).view(*pid.shape, 2)
     lo = torch.arange(n, dtype=torch.int64, device=pid.device)
     b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(lo), lo)
     return _bits_to_unit(b1 ^ b2)

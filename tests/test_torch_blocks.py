@@ -231,3 +231,34 @@ def test_sample_spans_name_block_first_sample_and_samples(port, monkeypatch, fra
     passes = [r for _, r in new_records(before) if r.name == "mcpt::sample"]
     assert [r.ident for r in passes] == idents
     assert all(r.launches == {"plain": 2, "sort": 2} for r in passes)
+
+
+@pytest.mark.parametrize("case", ["one sample a pass", "batched", "replayed step"])
+def test_key_words_are_made_once_a_call(port, monkeypatch, case):
+    """Every pass reads its samples' rows of the device key words that
+    `_key_words` makes once per render_tile_radiance call: a forward call
+    at one sample a pass (one 256-pixel block, 2 passes), a batched one (1
+    pass) and a replayed train step (7 blocks of 2 passes, each replayed in
+    the backward from the words its checkpoint saved)."""
+    sd, cam = port
+    px, py = pixels()
+    made = []
+    key_words = tint._key_words
+
+    def counted(*args):
+        made.append(args)
+        return key_words(*args)
+
+    monkeypatch.setattr(tint, "_key_words", counted)
+    if case == "replayed step":
+        target = torch.zeros((W * H, 3))
+        step = tpar.make_train_step(CFG, W, H, SPP)
+        _, calls = blocked(monkeypatch, FRAME,
+                           lambda: step(sd, cam, px, py, target, rng.prng_key(13)))
+        assert calls == 2 * (7 * SPP * 2)
+    else:
+        frame_chunk = W * H if case == "one sample a pass" else tint.FRAME_CHUNK
+        _, calls = blocked(monkeypatch, frame_chunk, lambda: tint.render_tile_radiance(
+            sd, cam, W, H, px, py, rng.prng_key(13), CFG))
+        assert calls == (SPP if case == "one sample a pass" else 1) * 2
+    assert len(made) == 1

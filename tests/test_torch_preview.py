@@ -48,6 +48,7 @@ from mc_path_tracer_tpu_torch.models.camera import PerspectiveCamera as TCam
 from mc_path_tracer_tpu_torch.models.primitives import plane, uv_sphere
 from mc_path_tracer_tpu_torch.models.scene import Scene as TScene
 from mc_path_tracer_tpu_torch.models.scene import scene_arrays
+from mc_path_tracer_tpu_torch.ops import rng as trng
 from mc_path_tracer_tpu_torch.ops import tonemap as ttone
 from mc_path_tracer_tpu_torch.utils.image import read_png
 from tests.test_torch_arealight import one_thread  # noqa: F401  (fixture)
@@ -140,7 +141,7 @@ def frames(built, jax_rays, jax_frames, mode):
         out = tprev.render_debug(tsd, TCam(**CAM), W, H, device="cpu")
         px, py = pixels()
         same = tprev._debug_chunk(tsd, route, ro, rd, torch.from_numpy((py * W + px).astype(
-            np.int32)))
+            np.int32)), trng.prng_key(0))
     else:
         out = tprev.render_preview(tsd, TCam(**CAM), W, H, mode, device="cpu")
         same = tprev._preview_chunk(tsd, route, ro, rd, mode)

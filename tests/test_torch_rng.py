@@ -59,17 +59,27 @@ def test_fold_in_vector_bit_equal(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("n", [2, 10])
-def test_pixel_uniforms_bit_equal(seed, n):
+@pytest.mark.parametrize("form", ["key", "words", "stacked"])
+def test_pixel_uniforms_bit_equal(seed, n, form):
+    """A [2] key ("key"), the same key as [1, 2] words ("words"), and three
+    samples' [3, 2] words over sample-major lanes ("stacked": run j of the
+    lanes, its own pixel ids, keyed by words[j]), held to JAX calls laid
+    end to end."""
     rng = np.random.default_rng(seed + n)
     pid = np.concatenate([
         [0, 1, MAX_PID - 1],
         rng.integers(0, MAX_PID, 2045),
     ]).astype(np.int32)
-    jk = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
-    tk = trng.fold_in(trng.prng_key(seed), 7)
-    ref = np.asarray(jrng.pixel_uniforms(jk, jnp.asarray(pid), n))
-    out = trng.pixel_uniforms(tk, torch.from_numpy(pid), n).numpy()
-    assert out.shape == ref.shape == (pid.shape[0], n)
+    k = 3 if form == "stacked" else 1
+    pids = [np.roll(pid, 101 * j) for j in range(k)]
+    jks = [jax.random.fold_in(jax.random.PRNGKey(seed), 7 + j) for j in range(k)]
+    tk = torch.stack([trng.fold_in(trng.prng_key(seed), 7 + j) for j in range(k)])
+    if form == "key":
+        tk = tk[0]
+    ref = np.concatenate([np.asarray(jrng.pixel_uniforms(jk, jnp.asarray(p), n))
+                          for jk, p in zip(jks, pids)])
+    out = trng.pixel_uniforms(tk, torch.from_numpy(np.concatenate(pids)), n).numpy()
+    assert out.shape == ref.shape == (k * pid.shape[0], n)
     assert out.dtype == np.float32
     np.testing.assert_array_equal(out.view(np.uint32), ref.view(np.uint32))
     assert (out >= 0.0).all() and (out < 1.0).all()
