@@ -41,27 +41,28 @@ the JAX package's pixel by pixel.
 `render` draws sample s of a frame with key fold_in(key, s);
 `render_progressive` draws pass p's samples with fold_in(key, p) through
 `_tile_pass`, one film snapshot per (pass, tile), as the JAX package does.
-`render_tile_radiance` runs the pixels in blocks: PIXEL_CHUNK pixels and
-one sample a pass while autograd records a graph; otherwise FRAME_CHUNK
-pixels, whose (pixel, sample) pairs run in passes of at most FRAME_CHUNK
-sample-major lanes (32 samples a pass of a 256 x 256 frame, 1 of a 1080p
-one), each lane keyed by its pixel and sample, so the radiance is the
-same under any cut.  A call derives every sample's keys on the host once
-(`_key_words`) and sends them to the device as one tensor of words; every
-pass, and every replay of a pass, reads its samples' rows of it.
+`render_tile_radiance` runs the pixels in blocks: PIXEL_CHUNK pixels
+while autograd records a graph, FRAME_CHUNK pixels otherwise.  Either
+block's (pixel, sample) pairs run in passes of at most FRAME_CHUNK
+sample-major lanes (32 samples a pass of a 256 x 256 frame or of a 384 x
+128 train step, 1 of a 1080p frame), each lane keyed by its pixel and
+sample, so the radiance is the same under any cut.  A call derives every
+sample's keys on the host once (`_key_words`) and sends them to the
+device as one tensor of words; every pass, and every replay of a pass,
+reads its samples' rows of it.
 
 Gradients (detached sampling): sampled directions, pdfs, MIS weights and
 intersections are detached (`stop_gradient` in the JAX package), so
 autograd reaches the material factors, the light radiances and the
 environment texels through the shading math only, and no kernel needs a
 backward pass.  While grad mode is on and a tensor the sample reads
-requires grad, `render_tile_radiance` replays each sample
+requires grad, `render_tile_radiance` replays each pass
 (`torch.utils.checkpoint`, the JAX package's `jax.checkpoint` with
-`nothing_saveable`): the forward keeps only each sample's inputs, and the
-backward re-runs the sample, every kernel dispatch included, to rebuild its
-graph.  Randomness is threefry keyed by pixel id and the kernels are
-deterministic, so the replay meets the hits of the forward.  A render of a
-scene that nothing differentiates runs as a plain forward.
+`nothing_saveable`): the forward keeps only each pass's inputs, and the
+backward re-runs the pass, its k samples' every kernel dispatch included,
+to rebuild its graph.  Randomness is threefry keyed by pixel id and the
+kernels are deterministic, so the replay meets the hits of the forward.
+A render of a scene that nothing differentiates runs as a plain forward.
 
 `sort_rays` (default on, as in the JAX package) dispatches the traversal
 kernel over lanes grouped by direction octant, dead lanes last
@@ -521,19 +522,19 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     pixel coordinates), [R, 3].  The pixels run in blocks, each through
     every sample before the next block starts, so live state stays bounded
     by the block.  While autograd records a graph a block is PIXEL_CHUNK
-    pixels and runs one sample a pass.  Otherwise (a forward render keeps
-    no graph, and fewer, wider passes launch fewer kernels) a block is
-    FRAME_CHUNK pixels and its (pixel, sample) pairs run in passes of at
-    most FRAME_CHUNK lanes: a block of B pixels runs k = min(samples left,
-    FRAME_CHUNK // B), at least 1, samples a pass over k * B sample-major
-    lanes (1 for a 1080p frame, 32 for a 256 x 256 one).  Every sample's
+    pixels, otherwise (a forward render keeps no graph) FRAME_CHUNK
+    pixels.  Either block's (pixel, sample) pairs run in passes of at most
+    FRAME_CHUNK lanes, since fewer, wider passes launch fewer kernels: a
+    block of B pixels runs k = min(samples left, FRAME_CHUNK // B), at
+    least 1, samples a pass over k * B sample-major lanes (1 for a 1080p
+    frame, 32 for a 256 x 256 one or a 384 x 128 train step).  Every sample's
     keys are derived on the host and sent to the device once per call
     (`_key_words`); each pass, and its replay, reads its rows.  Each
     pixel adds its samples in order, s = 0, 1, ..., and each lane's path
     is its own, its noise keyed by pixel id and sample, so the radiance
-    does not depend on the cut.  Under autograd each sample is replayed in
+    does not depend on the cut.  Under autograd each pass is replayed in
     the backward (module docstring) unless `replay=False`, which keeps
-    every sample's graph alive until the backward instead.  `first` is
+    every pass's graph alive until the backward instead.  `first` is
     px[0]'s index in a longer pixel list that is rendered in parts (a
     shard's rows): blocks are cut at multiples of the block size of that
     list, so each part runs the whole list's blocks (one cut by a part's
@@ -550,7 +551,7 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
     for b, (c0, c1) in enumerate(zip(cuts[:-1], cuts[1:])):
         px_c, py_c, size = px[c0:c1], py[c0:c1], c1 - c0
         acc = torch.zeros((size, 3), dtype=torch.float32, device=px.device)
-        k = 1 if records else max(1, min(spp, chunk // max(size, 1)))
+        k = max(1, min(spp, FRAME_CHUNK // max(size, 1)))
         for s in range(0, spp, k):
             n = min(k, spp - s)
             args = (scene, cfg, camera, width, height, px_c, py_c, words[s:s + n], s, b)
@@ -559,8 +560,10 @@ def render_tile_radiance(scene: SceneData, camera: camera_mod.CameraParams,
                                     preserve_rng_state=False)
             else:
                 sample = _sample_pass(*args)
-            for j in range(n):
-                acc = acc + sample[j * size:(j + 1) * size]
+            # one unbind, not n slices: each slice's backward would fill
+            # and copy a zero gradient the size of the whole pass
+            for part in sample.view(n, size, 3).unbind(0):
+                acc = acc + part
         blocks.append(acc)
     return torch.cat(blocks, dim=0)
 

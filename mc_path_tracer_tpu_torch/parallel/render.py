@@ -13,11 +13,13 @@ are enqueued in turn from one host thread, which makes every shard's
 launches, so the cards of one process share that thread's time: the
 route on which several cards work at once is one process per card
 (render_sharded_global under torchrun, as bench_scaling.py runs it).  A
-frame's shard cuts its own rows into forward blocks (FRAME_CHUNK, whose
-samples share a pass's lanes: a four-card rank's 1080p rows run their
-4 samples in one pass); a train step's shards cut their rows on the whole frame's PIXEL_CHUNK
-block grid (render_tile_radiance's `first`), so that their gradients add
-the one-device step's per-block sums.
+frame's shard cuts its own rows into forward blocks (FRAME_CHUNK); a
+train step's shards cut their rows on the whole frame's PIXEL_CHUNK block
+grid (render_tile_radiance's `first`), so that their gradients add the
+one-device step's per-block sums.  Either block's samples share a pass's
+lanes, up to FRAME_CHUNK of them: a four-card rank's 1080p rows run their
+4 samples in one pass, and so does a train step's 65,536-pixel block at
+up to 32 samples.
 
 `render_sharded` is the multi-device PathTracer::render_image;
 `render_sharded_global` is its multi-process form; `make_train_step` builds
@@ -144,13 +146,13 @@ def make_train_step(cfg: RenderConfig, width: int, height: int, spp: int, mesh=N
     device and takes its share of the loss (its rows over all rows), the
     gradients are summed over the shards and all-reduced over the mesh's
     process group, and loss and gradients come back on the first device.
-    `replay=False` keeps every sample's graph alive instead of replaying it
-    (for comparisons; it needs spp times the memory).
+    `replay=False` keeps every pass's graph alive instead of replaying it
+    (for comparisons; it needs a graph's memory for every pass).
     Each call runs in the kept spans (utils/profiling) `mcpt::train.step`,
     and inside it `mcpt::train.forward` (every shard's forward, up to the
     end of its launches: no synchronisation, a card may still be at that
     work), `mcpt::train.backward` (torch.autograd.grad: the replayed
-    samples' spans open on autograd's thread meanwhile) and, with a process
+    passes' spans open on autograd's thread meanwhile) and, with a process
     group, `mcpt::train.all_reduce`.  GLOBAL_TIMINGS.last(name) holds the
     last call's record of each: its host ns and the ops.kernels.LAUNCHES
     counters that moved in it (the forward's and the backward's launches)."""

@@ -1,12 +1,13 @@
 """The block cut of `render_tile_radiance`: a call that records no graph
 runs FRAME_CHUNK-pixel blocks, one that records a graph (a train step,
 replayed or not) PIXEL_CHUNK-pixel blocks, both cut at multiples of the
-block size counted from `first`.  A block that records a graph runs one
-sample a pass; a forward block of B pixels runs k = min(samples left,
-FRAME_CHUNK // B), at least 1, samples a pass over k * B sample-major
-lanes.  The cut changes the launch count only: forward radiance is
-bit-equal under any cut (noise keyed by pixel and sample, per-lane paths),
-and a step's loss and gradients do not see FRAME_CHUNK at all.
+block size counted from `first`.  Either block of B pixels runs k =
+min(samples left, FRAME_CHUNK // B), at least 1, samples a pass over
+k * B sample-major lanes.  The cut changes the launch count, and a step's
+gradients in the last bits at most (a pass's samples meet in one index
+backward instead of autograd's sum of per-pass ones): forward radiance
+and a step's loss are bit-equal under any cut (noise keyed by pixel and
+sample, per-lane paths, each pixel's samples added in order).
 
 Blocks here are 40 pixels under autograd and 120 otherwise, on a 16x16
 frame at 2 spp and depth 2 (two plain-version calls per pass: a closest
@@ -109,7 +110,8 @@ def test_forward_frame_is_one_block_at_the_default_cut(port, monkeypatch):
 def test_no_grad_render_of_a_differentiable_scene_runs_forward_blocks(port, monkeypatch):
     """A scene whose parameters require grad, rendered under no_grad,
     records nothing: FRAME_CHUNK blocks (120, 120 and 16 pixels: 2 + 2 + 1
-    passes); with grad on, PIXEL_CHUNK blocks at one sample a pass."""
+    passes); with grad on, PIXEL_CHUNK blocks (six of 40 pixels and one of
+    16), each block's two samples in one pass."""
     sd, cam = port
     albedo = sd.materials.albedo.detach().requires_grad_(True)
     diff = sd._replace(materials=sd.materials._replace(albedo=albedo))
@@ -121,7 +123,7 @@ def test_no_grad_render_of_a_differentiable_scene_runs_forward_blocks(port, monk
     with torch.no_grad():
         off, off_calls = blocked(monkeypatch, FRAME, radiance)
     on, on_calls = blocked(monkeypatch, FRAME, radiance)
-    assert (off_calls, on_calls) == ((2 + 2 + 1) * 2, 7 * 2 * SPP)
+    assert (off_calls, on_calls) == ((2 + 2 + 1) * 2, 7 * 2)
     assert on.requires_grad and not off.requires_grad
     assert torch.equal(off, on.detach())
 
@@ -129,21 +131,57 @@ def test_no_grad_render_of_a_differentiable_scene_runs_forward_blocks(port, monk
 @pytest.mark.parametrize("replay", [True, False])
 def test_train_step_blocks_ignore_the_frame_cut(port, monkeypatch, replay):
     """The replayed step and a `replay=False` step cut at PIXEL_CHUNK
-    whatever FRAME_CHUNK is: the same launches (forward 7 blocks, and the
-    replay's 7 again in the backward), loss and gradients bit-equal."""
+    whatever FRAME_CHUNK is (7 blocks), and FRAME_CHUNK decides only how
+    many samples a pass: both at 120 (7 passes), one a pass at 40 (2 + 2 +
+    2 + 2 + 2 + 2 + 1: the 16-pixel block still takes both), the replay's
+    passes again in the backward; loss bit-equal, gradients within 1e-6 of
+    the largest."""
     sd, cam = port
     px, py = pixels()
     target = torch.from_numpy(
         np.random.default_rng(6).uniform(0.0, 1.0, (W * H, 3)).astype(np.float32))
     step = tpar.make_train_step(CFG, W, H, SPP, replay=replay)
     runs = []
-    for frame_chunk in (FRAME, CHUNK):
+    for frame_chunk, passes in ((FRAME, 7), (CHUNK, 13)):
         (loss, (mat, ls, tex)), calls = blocked(
             monkeypatch, frame_chunk, lambda: step(sd, cam, px, py, target, rng.prng_key(7)))
         forward = GLOBAL_TIMINGS.last("mcpt::train.forward").launches.get("plain", 0)
-        assert (forward, calls - forward) == (7 * 2 * SPP, 7 * 2 * SPP if replay else 0)
+        assert (forward, calls - forward) == (passes * 2, passes * 2 if replay else 0)
         runs.append([loss, *mat, ls, tex])
-    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+
+
+BATCH_SPP = 4
+
+
+def test_replayed_step_batches_its_samples(port, monkeypatch):
+    """A replayed train step of one 256-pixel block at 4 spp runs every
+    sample in one pass, forward and replay, at the default FRAME_CHUNK, and
+    one sample a pass at FRAME_CHUNK = 256: the same loss, gradients within
+    1e-6 of the largest, and every traced `mcpt::sample` span of the
+    batched step, the forward's and the replay's, carries all 4 samples."""
+    sd, cam = port
+    px, py = pixels()
+    target = torch.from_numpy(
+        np.random.default_rng(14).uniform(0.0, 1.0, (W * H, 3)).astype(np.float32))
+    cfg = dataclasses.replace(CFG, spp=BATCH_SPP)
+    step = tpar.make_train_step(cfg, W, H, BATCH_SPP)
+    runs, idents = [], []
+    for frame_chunk in (tint.FRAME_CHUNK, W * H):
+        monkeypatch.setattr(tint, "FRAME_CHUNK", frame_chunk)
+        before = len(GLOBAL_TIMINGS.records())
+        (loss, (mat, ls, tex)), _ = traced(
+            lambda: step(sd, cam, px, py, target, rng.prng_key(15)))
+        idents.append([r.ident for _, r in new_records(before) if r.name == "mcpt::sample"])
+        runs.append([loss, *mat, ls, tex])
+    assert idents[0] == [(0, 0, BATCH_SPP)] * 2
+    assert sorted(idents[1]) == sorted([(0, s, 1) for s in range(BATCH_SPP)] * 2)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1].abs().sum() > 0
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
 
 
 AREA_DEPTH = 3
@@ -238,7 +276,7 @@ def test_key_words_are_made_once_a_call(port, monkeypatch, case):
     """Every pass reads its samples' rows of the device key words that
     `_key_words` makes once per render_tile_radiance call: a forward call
     at one sample a pass (one 256-pixel block, 2 passes), a batched one (1
-    pass) and a replayed train step (7 blocks of 2 passes, each replayed in
+    pass) and a replayed train step (7 blocks of one pass, each replayed in
     the backward from the words its checkpoint saved)."""
     sd, cam = port
     px, py = pixels()
@@ -255,7 +293,7 @@ def test_key_words_are_made_once_a_call(port, monkeypatch, case):
         step = tpar.make_train_step(CFG, W, H, SPP)
         _, calls = blocked(monkeypatch, FRAME,
                            lambda: step(sd, cam, px, py, target, rng.prng_key(13)))
-        assert calls == 2 * (7 * SPP * 2)
+        assert calls == 2 * (7 * 2)
     else:
         frame_chunk = W * H if case == "one sample a pass" else tint.FRAME_CHUNK
         _, calls = blocked(monkeypatch, frame_chunk, lambda: tint.render_tile_radiance(

@@ -246,9 +246,9 @@ def _step_launches(step, *args):
 
 
 def test_replay_matches_no_replay():
-    """Replaying each sample in the backward gives the gradients of keeping
-    every sample's graph, and re-runs every intersection dispatch of the
-    forward: 2 spp x (1 + 1 + 2) dispatches at depth 3."""
+    """Replaying each pass in the backward gives the gradients of keeping
+    every pass's graph, and re-runs every intersection dispatch of the
+    forward: one pass of both samples, (1 + 1 + 2) dispatches at depth 3."""
     _, tsd, _, tcam = scenes("small_scene")
     px, py = (torch.from_numpy(v) for v in pixels())
     args = (tsd, tint.camera_params(tcam, W, H, "cpu"), px, py, torch.full((W * H, 3), 0.5),
@@ -257,7 +257,7 @@ def test_replay_matches_no_replay():
     loss_r, grads_r, fwd_r, bwd_r = _step_launches(make_train_step(cfg, W, H, 2), *args)
     loss_k, grads_k, fwd_k, bwd_k = _step_launches(
         make_train_step(cfg, W, H, 2, replay=False), *args)
-    assert (fwd_r, bwd_r, fwd_k, bwd_k) == (8, 8, 8, 0)
+    assert (fwd_r, bwd_r, fwd_k, bwd_k) == (4, 4, 4, 0)
     assert float(loss_r) == float(loss_k)
     for a, b in zip([*grads_r[0], *grads_r[1:]], [*grads_k[0], *grads_k[1:]]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
@@ -265,10 +265,9 @@ def test_replay_matches_no_replay():
 
 def test_render_is_the_same_with_grad_enabled():
     """render() of a scene whose albedo requires grad, under torch.no_grad
-    and with grad enabled (then every sample is replayed in a backward): the
-    same image, the plain calls of one pass of both samples under no_grad
-    and of one pass a sample with grad (4 dispatches a pass), and a
-    backward that reaches albedo."""
+    and with grad enabled (then every pass is replayed in a backward): the
+    same image, the plain calls of one pass of both samples either way (4
+    dispatches a pass), and a backward that reaches albedo."""
     _, tsd, _, tcam = scenes("small_scene")
     leaves, sd = leaves_of(tsd)
     cfg = tint.RenderConfig(spp=2, max_depth=3)
@@ -279,7 +278,7 @@ def test_render_is_the_same_with_grad_enabled():
             films.append(tint.render(sd, tcam, W, H, cfg, key=trng.prng_key(KEY)))
         calls.append(LAUNCHES["plain"] - before)
     assert torch.equal(films[0].ld, films[1].ld.detach())
-    assert calls == [4, 8]
+    assert calls == [4, 4]
     assert not films[0].ld.requires_grad and films[1].ld.requires_grad
     films[1].ld.sum().backward()
     assert leaves[0].grad is not None and leaves[0].grad.abs().sum() > 0

@@ -232,10 +232,10 @@ def test_sharded_step_matches_jax_step(steps, jax_step):
 
 def test_sharded_step_counts_every_shard(steps):
     """The forward's kept span counts the shards' forwards; the backward
-    replays each: per sample one closest and one fused any-hit dispatch for
-    each of the 8 shards' blocks."""
+    replays each: one pass of both samples for each of the 8 shards'
+    blocks, one closest and one fused any-hit dispatch a pass."""
     *_, (forward, backward) = steps
-    assert forward == backward == SHARDS * SPP * 2
+    assert forward == backward == SHARDS * 2
 
 
 def test_sharded_sgd_step_lowers_the_loss(port):
@@ -375,8 +375,9 @@ def test_shard_blocks_follow_the_frame_grid(port, target, steps, monkeypatch):
     blocks from its own first row (1 each, one sample a pass), while a
     train step's shard cuts 40-pixel blocks on the frame's grid
     (render_tile_radiance's `first`: 2, 3, 2, 3), so that every block of
-    the one-device step (7) runs whole or in two parts; frames bit-equal,
-    gradients within 1e-5 of the largest."""
+    the one-device step (7) runs whole or in two parts, each block's two
+    samples in one pass; frames bit-equal, gradients within 1e-5 of the
+    largest."""
     sd, cam = port
     cfg = tint.RenderConfig(spp=SPP, max_depth=DEPTH)
     monkeypatch.setattr(tint, "PIXEL_CHUNK", 40)
@@ -390,7 +391,7 @@ def test_shard_blocks_follow_the_frame_grid(port, target, steps, monkeypatch):
     assert torch.equal(frame, single.ld)
     (_, grads1), *_ = steps
     (_, grads, _), shards = shard_launches(lambda: run_step(port, target, cpu_mesh(4)))
-    assert [got["plain"] for got in shards] == [n * 2 * SPP for n in (2, 3, 2, 3)]
+    assert [got["plain"] for got in shards] == [n * 2 for n in (2, 3, 2, 3)]
     assert largest_gap([g.numpy() for g in grads], [g.numpy() for g in grads1]) <= \
         SHARD_GRAD_TOL
     # 100 pixels whose first is pixel 40 of the list, 96-pixel forward
